@@ -20,8 +20,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from wass_tpu.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 from wass_tpu.cli.pipeline import SequenceConfig, SequencePipeline
 from wass_tpu.match.pipeline import MatchConfig

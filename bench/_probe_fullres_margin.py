@@ -1,6 +1,6 @@
 """Probe: full-resolution (2048x1536) match-count margin vs detector knobs.
 
-VERDICT r04 item 5: the clean full-res row measures 437 matches vs the
+The clean full-res row measured 437 matches vs the
 >=400 gate (verify_matcher.m:5-6) — a 1.1x margin.  The reference budgets
 2000 features at any resolution (wass_match.cpp:39); at 3 MP that budget
 under-samples the image (0.06% of pixels vs 0.26% at 1 MP).  This probe
@@ -8,7 +8,7 @@ sweeps detector capacity / NMS density to find a config giving >=600
 matches with no epipolar-error regression (<= 0.177 px clean), on the
 IDENTICAL scene/protocol as bench/robustness.py fullres_matcher_sweep.
 
-Run: python bench/_probe_fullres_margin.py  (TPU)
+Run: python bench/_probe_fullres_margin.py  (on a GPU)
 """
 import os
 import sys

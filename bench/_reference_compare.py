@@ -1,7 +1,7 @@
 """Reference-class sparse-pipeline head-to-head under sensor noise.
 
 The noise sigma=8 row has no passing configuration in our matcher
-(ROBUSTNESS_r05 noise_s8_sweep).  To establish whether that is an
+(bench/robustness.py noise_s8_sweep).  To establish whether that is an
 implementation gap or a signal floor, this runs the same pooled-pose
 protocol through OpenCV's classical sparse pipeline — SIFT (this cv2
 build has no KAZE; SIFT is the same detector class the reference chose
@@ -12,7 +12,7 @@ re-estimation + recoverPose — on the identical scenes/degradations.
 The scene's surface texture measures ~0.4 gray levels of mean gradient;
 sigma=8 noise is ~20x above the signal.  If the OpenCV pipeline also
 blows the pose gates there (and passes clean), the sigma=8 failure is a
-physics limit of the imagery, not of the TPU matcher.
+physics limit of the imagery, not of our matcher.
 
 Run: python bench/_reference_compare.py   (CPU only, ~2 min)
 """

@@ -15,7 +15,7 @@ Degradations: JPEG quality sweep, additive Gaussian sensor noise,
 specular saturation blobs (burned highlights).  Prints a markdown table
 for docs/quality.md.
 
-Run on TPU:   python bench/robustness.py
+Run on a GPU: python bench/robustness.py
 Matcher-only: WASS_ROBUST_MATCH_ONLY=1 python bench/robustness.py
 Pooled pose:  WASS_ROBUST_POOLED=1 python bench/robustness.py
               (the PRODUCTION pose path: match 8 degraded frames ->
@@ -33,8 +33,9 @@ import io
 import os
 import sys
 import time
+from pathlib import Path
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
@@ -110,8 +111,9 @@ def pooled_pose_sweep():
     dR/dT vs ground truth next to the single-pair initialization."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from wass_tpu.calib.autocalibrate import AutocalConfig, autocalibrate_pooled
     from wass_tpu.match.pipeline import MatchConfig, match_frame
@@ -177,8 +179,9 @@ def noise_s8_sweep():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from wass_tpu.calib.autocalibrate import AutocalConfig, autocalibrate_pooled
     from wass_tpu.match.pipeline import MatchConfig, match_frame
@@ -240,8 +243,9 @@ def fullres_matcher_sweep():
     the >=400-match gate is defined (verify_matcher.m:5,18)."""
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from wass_tpu.match.pipeline import MatchConfig, match_frame
 
@@ -278,8 +282,9 @@ def dense_knob_sweep():
     import jax
     from scipy.ndimage import gaussian_filter
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from wass_tpu.stereo.dense import DenseStereoConfig, dense_stereo_frame
 
@@ -338,8 +343,9 @@ def dense_knob_sweep():
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from wass_tpu.match.pipeline import MatchConfig, match_frame
     from wass_tpu.stereo.dense import DenseStereoConfig, dense_stereo_frame

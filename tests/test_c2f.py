@@ -1,9 +1,10 @@
-"""Coarse-to-fine windowed SGM: interpret-mode kernel parity + e2e.
+"""Coarse-to-fine windowed SGM: the windowed cost volume and aggregation
+(per-row offsets on the plain cost/SGM reference) + e2e.
 
-The windowed Pallas kernels (stereo/sgm_pallas.py) must degenerate to the
-full-range kernels when the window covers the whole search range, and the
-full coarse-to-fine path must reproduce full-range SGM disparities on a
-scene whose disparity fits the per-row windows.
+The windowed volume must degenerate to the full-range one when the window
+covers the whole search range, and the full coarse-to-fine path must
+reproduce full-range SGM disparities on a scene whose disparity fits the
+per-row windows.
 """
 
 import numpy as np
@@ -12,14 +13,11 @@ import pytest
 
 from wass_tpu.stereo.cost import census_transform, census_cost_volume
 from wass_tpu.stereo.sgm import sgm_aggregate, sgm_disparity, wta_disparity
-from wass_tpu.stereo.sgm_pallas import (
-    census_cost_volume_pallas_windowed,
-    sgm_aggregate_pallas_windowed,
-)
 from wass_tpu.stereo.c2f import (
     TILE_ROWS,
     compute_row_windows,
     sgm_disparity_c2f,
+    sgm_disparity_windowed,
     wta_disparity_windowed,
 )
 
@@ -42,10 +40,8 @@ def test_windowed_cost_full_window_identity(rng):
     cb = census_transform(b, (5, 5))
     cm = census_transform(m, (5, 5))
     full = census_cost_volume(cb, cm, D, min_disp=1)
-    wstart = jnp.full((H // TILE_ROWS,), 1, jnp.int32)
-    win = census_cost_volume_pallas_windowed(
-        cb, cm, wstart, D, D, min_disp=1, interpret=True
-    )
+    offsets = jnp.full((H,), 1, jnp.int32)
+    win = census_cost_volume(cb, cm, D, offsets=offsets)
     np.testing.assert_array_equal(np.asarray(win), np.asarray(full))
 
 
@@ -59,12 +55,8 @@ def test_windowed_cost_shifted_tiles(rng):
     cm = census_transform(m, (5, 5))
     min_disp = 1
     full = np.asarray(census_cost_volume(cb, cm, D, min_disp=min_disp))
-    wstart = jnp.asarray([3, 9], jnp.int32)
-    win = np.asarray(
-        census_cost_volume_pallas_windowed(
-            cb, cm, wstart, Dw, D, min_disp=min_disp, interpret=True
-        )
-    )
+    off_rows = jnp.repeat(jnp.asarray([3, 9], jnp.int32), TILE_ROWS)
+    win = np.asarray(census_cost_volume(cb, cm, Dw, offsets=off_rows))
     for t, ws in enumerate([3, 9]):
         rows = slice(t * TILE_ROWS, (t + 1) * TILE_ROWS)
         np.testing.assert_array_equal(
@@ -73,14 +65,14 @@ def test_windowed_cost_shifted_tiles(rng):
 
 
 def test_windowed_aggregate_constant_offsets(rng):
-    """With a constant window start the realigning kernel never rolls and
-    must match the XLA full aggregation exactly (on the windowed slice)."""
+    """With a constant window start the carry never realigns, so the
+    windowed aggregation must match the full aggregation exactly."""
     H, W, D = 16, 32, 16
     cost = jnp.asarray(rng.integers(0, 60, (H, W, D)).astype(np.uint8))
-    wstart = jnp.zeros((H // TILE_ROWS,), jnp.int32)
+    offsets = jnp.full((H,), 5, jnp.int32)
     for dirs in (2, 5, 8):
         ref = sgm_aggregate(cost, 8, 96, dirs)
-        win = sgm_aggregate_pallas_windowed(cost, wstart, 8, 96, dirs, interpret=True)
+        win = sgm_aggregate(cost, 8, 96, dirs, offsets)
         np.testing.assert_array_equal(np.asarray(win), np.asarray(ref))
 
 
@@ -104,29 +96,28 @@ def test_windowed_aggregate_winner_parity_across_tiles(rng):
     win_cost = np.stack(
         [np.asarray(cost)[y, :, o : o + Dw] for y, o in enumerate(np.asarray(off_rows))]
     )
-    win = sgm_aggregate_pallas_windowed(
-        jnp.asarray(win_cost), wstart, 8, 96, 8, interpret=True
-    )
+    win = sgm_aggregate(jnp.asarray(win_cost), 8, 96, 8, off_rows)
     win_d = np.asarray(win).argmin(-1) + np.asarray(off_rows)[:, None]
     np.testing.assert_array_equal(win_d, full)
 
 
 def test_fused_windowed_wta_matches_unfused(rng):
-    """The fused windowed final-walk WTA must reproduce
-    wta_disparity_windowed(sgm_aggregate_pallas_windowed(...)) bit-exactly,
+    """The windowed disparity stage (sgm_disparity_windowed) must reproduce
+    wta_disparity_windowed(sgm_aggregate(windowed cost, offsets)) bit-exactly,
     including across varying per-tile window starts."""
-    from wass_tpu.stereo.sgm_pallas import sgm_wta_fused_pallas_windowed
-
-    H, W, Dw = 32, 32, 16
-    cost = jnp.asarray(rng.integers(0, 60, (H, W, Dw)).astype(np.uint8))
+    H, W, Dw = 32, 48, 16
+    b = jnp.asarray(rng.uniform(0, 255, (H, W)).astype(np.float32))
+    m = jnp.asarray(rng.uniform(0, 255, (H, W)).astype(np.float32))
     wstart = jnp.asarray([3, 9, 5, 12], jnp.int32)
     off_rows = jnp.repeat(wstart, TILE_ROWS)
+    cb = census_transform(b, (5, 5))
+    cm = census_transform(m, (5, 5))
+    cost = census_cost_volume(cb, cm, Dw, offsets=off_rows)
     for dirs in (5, 8):
-        agg = sgm_aggregate_pallas_windowed(cost, wstart, 8, 96, dirs, interpret=True)
+        agg = sgm_aggregate(cost, 8, 96, dirs, off_rows)
         ref = np.asarray(wta_disparity_windowed(agg, off_rows, uniqueness_ratio=1))
-        d = sgm_wta_fused_pallas_windowed(cost, wstart, 8, 96, dirs, 1, interpret=True)
         got = np.asarray(
-            jnp.where(d == 0.0, 0.0, d - 1.0 + off_rows[:, None].astype(jnp.float32))
+            sgm_disparity_windowed(b, m, wstart, Dw, 8, 96, dirs, (5, 5), 1)
         )
         np.testing.assert_array_equal(got, ref)
 
@@ -156,7 +147,7 @@ def test_compute_row_windows_fallbacks():
 
 
 def test_offband_object_triggers_fallback():
-    """Adversarial case (VERDICT r2 item 2): a compact object (buoy/boat
+    """Adversarial case: a compact object (buoy/boat
     patch) at a disparity far outside its row's band must raise the
     coherent off-band metric and trip the production fallback decision,
     while scattered single-pixel junk must not."""
@@ -197,21 +188,16 @@ def test_offband_object_triggers_fallback():
 
 
 def test_c2f_disparity_end_to_end(rng):
-    """Full c2f path (interpret-mode windowed kernels) vs full-range SGM
-    on a row-dependent-disparity scene."""
+    """Full c2f path (windowed cost + SGM) vs full-range SGM on a
+    row-dependent-disparity scene."""
     H, W = 64, 128
     D, Dw, factor = 32, 16, 4
     drow = 6 + (np.arange(H) * 8) // H  # 6..13, within each 8-row tile +-1
     b, m = _pair_with_row_disparity(rng, H, W, drow)
 
-    full = np.asarray(
-        sgm_disparity(b, m, num_disp=D, min_disp=1, use_pallas=False)
-    )
+    full = np.asarray(sgm_disparity(b, m, num_disp=D, min_disp=1))
     c2f = np.asarray(
-        sgm_disparity_c2f(
-            b, m, num_disp=D, min_disp=1, factor=factor, win_disp=Dw,
-            use_pallas=False, interpret=True,
-        )
+        sgm_disparity_c2f(b, m, num_disp=D, min_disp=1, factor=factor, win_disp=Dw)
     )
     interior = np.zeros((H, W), bool)
     interior[4:-4, 24:-4] = True
@@ -238,9 +224,7 @@ def test_deferred_fallback_resolution():
     """resolve_fallback (the writer-thread side of deferred c2f
     speculation): device-scalar diagnostics below the coverage guard must
     trigger a full-range re-run matching the full-range pipeline; healthy
-    diagnostics must pass the speculative result through untouched.
-    (The windowed dispatch itself is TPU-gated; the deferral handshake is
-    backend-independent and tested here on CPU.)"""
+    diagnostics must pass the speculative result through untouched."""
     import dataclasses
 
     from wass_tpu.stereo.dense import (
@@ -266,7 +250,7 @@ def test_deferred_fallback_resolution():
     mr = rectify_on_device(m, geom.H_match, (h, w))
 
     pipe = DenseStereoPipeline(cfg, defer_c2f_fallback=True)
-    res = pipe(br, mr, b, m, gp)  # CPU: full-range path, c2f inactive
+    res = pipe(br, mr, b, m, gp)  # speculative windowed result
 
     # Healthy diagnostics (device scalars, unresolved): pass-through.
     ok_info = {"coverage": jnp.float32(0.97), "offband": jnp.float32(1e-5),

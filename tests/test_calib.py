@@ -114,7 +114,7 @@ class TestAutocalibrate:
     def test_pooled_reduction_f64_precision(self, rng):
         """End-to-end pooled reduction at realistic pooled-inlier counts and
         the LK noise floor: dR must land well under the ~6e-4 residual the
-        f32-only polish measured (ACCURACY_r03 decomposition)."""
+        f32-only polish measured."""
         K = np.array([[1400.0, 0, 1024], [0, 1400, 768], [0, 0, 1]])
         R, T, pts, p0n, p1n = make_two_view(rng, n=2500, noise=0.01 / 1400, planar=True)
         # Contaminating tail like the production pool (few-% gross mismatches).

@@ -94,11 +94,21 @@ class TestGridsurfaceCLI:
         assert r.exit_code == 0
 
 
+@pytest.fixture
+def no_compile_cache(monkeypatch):
+    """The CLI entry turns on JAX's persistent compile cache; keep the test
+    process's compilations out of it."""
+    import wass_tpu.utils.compile_cache as cc
+
+    monkeypatch.setattr(cc, "enable_compile_cache", lambda: "")
+
+
+@pytest.mark.usefixtures("no_compile_cache")
 class TestMainCLI:
-    def test_measure(self, reconstructed_seq):
+    def test_measure(self, reconstructed_seq, capsys):
         """The wass_stereo --measure equivalent: distance between two
         reconstructed points addressed by cam0 pixel coordinates."""
-        from wass_tpu.cli.main import cli
+        from wass_tpu.cli.main import main
         from wass_tpu.io.workdir import Workdir
 
         seq, _rig = reconstructed_seq
@@ -109,33 +119,86 @@ class TestMainCLI:
         uv = uv[:2] / uv[2:3]
         i, j = 10, mesh.shape[1] - 10
         expected = float(np.linalg.norm(mesh[:, i] - mesh[:, j]))
-        runner = CliRunner()
-        r = runner.invoke(cli, [
+        rc = main([
             "measure", str(wd.path),
             f"{uv[0][i]:.2f}", f"{uv[1][i]:.2f}", f"{uv[0][j]:.2f}", f"{uv[1][j]:.2f}",
             "--baseline", "2.5",
         ])
-        assert r.exit_code == 0, r.output
-        got = float(r.output.split("distance: ")[1].split()[0])
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        got = float(out.split("distance: ")[1].split()[0])
         assert abs(got - expected) < 5e-2 * max(expected, 1.0)
-        assert f"{expected * 2.5:.3f}"[:5] in r.output or "m (baseline" in r.output
+        assert f"{expected * 2.5:.3f}"[:5] in out or "m (baseline" in out
 
-    def test_measure_rejects_far_pixel(self, reconstructed_seq):
-        from wass_tpu.cli.main import cli
+    def test_measure_rejects_far_pixel(self, reconstructed_seq, capsys):
+        from wass_tpu.cli.main import main
 
         seq, _rig = reconstructed_seq
         wd = sorted(seq.glob("*_wd"))[0]
-        r = CliRunner().invoke(cli, ["measure", str(wd), "1e6", "1e6", "0", "0"])
-        assert r.exit_code != 0
-        assert "no reconstructed point" in r.output
+        rc = main(["measure", str(wd), "1e6", "1e6", "0", "0"])
+        assert rc != 0
+        assert "no reconstructed point" in capsys.readouterr().err
 
-    def test_genconfig(self, tmp_path):
-        from wass_tpu.cli.main import cli
+    def test_genconfig(self, tmp_path, capsys):
+        from wass_tpu.cli.main import main
 
-        runner = CliRunner()
-        r = runner.invoke(cli, ["genconfig", str(tmp_path), "--stage", "stereo"])
-        assert r.exit_code == 0, r.output
+        rc = main(["genconfig", str(tmp_path), "--stage", "stereo"])
+        assert rc == 0, capsys.readouterr().err
         text = (tmp_path / "stereo_config.txt").read_text()
         # Reference option names & genconfig format (matcher.html.md:36-96).
         assert "MAX_DISPARITY=640" in text
         assert text.count("#") > 20
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (64, 80, 3)], ids=["gray", "rgb"])
+def test_png_codec_roundtrip(tmp_path, shape):
+    """The numpy + zlib PNG codec reads what libpng (native) or imageio
+    writes, and they read what it writes."""
+    from wass_tpu import native
+    from wass_tpu.io import png
+
+    img = (np.random.default_rng(3).random(shape) * 255).astype(np.uint8)
+    ext = tmp_path / "ext.png"
+    if len(shape) == 2 and native.available():
+        native.png_write_gray(ext, img)
+    else:
+        import imageio.v3 as iio
+
+        iio.imwrite(ext, img)
+    np.testing.assert_array_equal(png.decode(ext.read_bytes()), img)
+    if len(shape) == 2:
+        ours = tmp_path / "ours.png"
+        ours.write_bytes(png.encode_gray(img))
+        if native.available():
+            np.testing.assert_array_equal(native.png_read_gray(ours), img)
+        import imageio.v3 as iio
+
+        np.testing.assert_array_equal(iio.imread(ours), img)
+
+
+class TestCompileCache:
+    def test_env_var_left_to_jax(self, monkeypatch, tmp_path):
+        import jax
+
+        from wass_tpu.utils.compile_cache import enable_compile_cache
+
+        calls = []
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+        assert enable_compile_cache() == str(tmp_path)
+        assert calls == []
+
+    def test_default_is_checkout_dir(self, monkeypatch):
+        from pathlib import Path
+
+        import jax
+
+        import wass_tpu
+        from wass_tpu.utils.compile_cache import enable_compile_cache
+
+        calls = []
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+        expected = str(Path(wass_tpu.__file__).resolve().parents[1] / ".jax_cache")
+        assert enable_compile_cache() == expected
+        assert calls == [("jax_compilation_cache_dir", expected)]

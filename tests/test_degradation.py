@@ -1,7 +1,7 @@
 """Input-degradation estimator + AUTO pre-smoothing policy
 (wass_tpu/prepare/degradation.py).
 
-The policy encodes the measured robustness map (ROBUSTNESS_r04/r05):
+The policy encodes the measured robustness map (bench/robustness.py):
 clean -> 0.8, sensor noise -> 1.5, deep JPEG -> 2.5 for the matcher.
 These tests pin the discrimination itself on synthetic textured imagery.
 """

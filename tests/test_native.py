@@ -31,7 +31,7 @@ class TestImageIO:
 
     def test_jpeg_encode(self, rng):
         img = (rng.random((64, 64)) * 255).astype(np.uint8)
-        data = native.jpeg_encode_gray(img, quality=95)
+        data = native.jpeg_encode(img, quality=95)
         assert data[:2] == b"\xff\xd8"  # JPEG SOI
         import imageio.v3 as iio
 

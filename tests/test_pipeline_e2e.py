@@ -115,8 +115,8 @@ class TestSequencePipeline:
         # resolution-limited (~1.6e-2 across estimator variants; the
         # quasi-planar scene barely constrains it at f ~ 420 px), while
         # at the production 1.77-3 MP scale the same estimator measures
-        # dR ~ 1.1e-4 / dT ~ 2e-4 (ACCURACY_r04, 50-100x inside the
-        # gates) — the scale where the gate is defined.
+        # dR ~ 1.1e-4 / dT ~ 2e-4 (bench.py --accuracy, 50-100x inside
+        # the gates) — the scale where the gate is defined.
         assert np.abs(res.R - rig.R).max() < 5e-3
         assert np.abs(res.T.ravel() - Tg).max() < 2e-2
         # The refined pose must actually be broadcast to every workdir
@@ -145,8 +145,8 @@ class TestSequencePipeline:
             # resolution the dense match is quantization/resolution-limited
             # to ~0.025 even with GT extrinsics — gate at 0.04 (~1.5x
             # margin over the calibrated measurement).  The full-scale
-            # calibrated gate PASSES in bench.py bench_accuracy
-            # (worst frame 0.0183 < 0.02, ACCURACY_r04.json).
+            # calibrated gate is checked by bench.py --accuracy and the
+            # gpu tier (test_gpu_gates.py).
             assert trimmed.mean() < 0.04
             # Failure-map artifact (wass_stereo.cpp:1114-1119 equivalent).
             assert (wd.path / "triangulation_failmap.jpg").exists()
@@ -155,14 +155,14 @@ class TestSequencePipeline:
 class TestWireDeltaAuto:
     def test_break_even_flips(self):
         """The AUTO wire decision must pick delta on slow-link/fast-host
-        and direct on fast-link/slow-host (the E2E_r04 break-even)."""
+        and direct on fast-link/slow-host (the break-even rule)."""
         from wass_tpu.cli.pipeline import SequencePipeline
 
         d = SequencePipeline._wire_delta_decision
-        # This 2-core VM decodes ~4e-7 s/pt; a 28 MB/s relay ships the
-        # saved 1.5 B/pt in 5.1e-8 s -> direct wins.
+        # A host decoding 4e-7 s/pt behind a 28 MB/s link: the link ships
+        # the saved 1.5 B/pt in 5.1e-8 s -> direct wins.
         assert d(28.0, 4e-7) is False
-        # A 1 MB/s relay: 1.4e-6 s/pt on the wire -> delta wins.
+        # A 1 MB/s link: 1.4e-6 s/pt on the wire -> delta wins.
         assert d(1.0, 4e-7) is True
         # A PCIe-class host link (2 GB/s): delta is always moot.
         assert d(2000.0, 1e-7) is False

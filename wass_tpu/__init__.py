@@ -1,6 +1,6 @@
-"""wass_tpu — TPU-native sea-wave stereo reconstruction engine.
+"""wass_tpu — sea-wave stereo reconstruction in JAX, on an NVIDIA GPU.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of WASS
+A JAX program with the capabilities of WASS
 (Waves Acquisition Stereo System): given synchronized stereo image
 sequences of the sea surface and known camera intrinsics, recover the
 stereo extrinsics, reconstruct dense 3D point clouds of the wave field,
@@ -10,7 +10,7 @@ sea-plane-aligned surface, and compute wave spectra.
 Unlike the reference (four single-threaded C++ executables coordinated by
 a shared filesystem), the whole pipeline here is a set of pure, jittable,
 batched stage functions over fixed-shape arrays, designed to shard frame
-pairs across TPU meshes and solve the sequence-wide bundle adjustment with
+pairs across the GPUs of a device mesh and solve the sequence-wide bundle adjustment with
 a distributed Schur complement.
 
 Layout (mirrors SURVEY.md §2's component inventory):

@@ -2,7 +2,7 @@
 
 Replaces the reference's libsba + Maple-generated analytic Jacobians
 (sba_driver, /root/reference/src/wass_autocalibrate/sba_driver.cpp:281-643,
-sba_motstr_levmar_x call :773-777) with a TPU-shaped design:
+sba_motstr_levmar_x call :773-777) with a batched, fixed-shape design:
 
 * camera 0 is gauge-fixed at the identity; the free parameters are camera
   1's local rotation increment (so(3)) + translation, plus the 3D points;
@@ -56,9 +56,9 @@ def _point_residual(cam: jnp.ndarray, R0: jnp.ndarray, X: jnp.ndarray, p0: jnp.n
 
 def lm_refine_two_view(*args, **kwargs) -> "BAResult":
     """Two-view LM BA (see _lm_refine_two_view_jit); forces full-f32
-    matmul precision — TPU f32 dots default to bf16 passes, which this
-    calibration-critical path cannot afford (measured 5x pose accuracy
-    loss), and the per-iteration matrices are tiny."""
+    matmul precision — reduced-precision f32 products (TF32 on a GPU) cost
+    this calibration-critical path pose accuracy, and the per-iteration
+    matrices are tiny."""
     with jax.default_matmul_precision("highest"):
         return _lm_refine_two_view_jit(*args, **kwargs)
 

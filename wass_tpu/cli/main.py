@@ -1,24 +1,36 @@
-"""wass-tpu command-line interface (the wasscli equivalent).
+"""wass_tpu command-line interface (the wasscli equivalent).
 
 The reference CLI (/root/reference/cli/wasscli/wasscli.py) is an
 interactive menu that shells out to four executables.  Here the stages are
-in-process library calls; the CLI exposes them as click subcommands plus a
-`run` command covering the whole prepare -> match -> autocalibrate ->
-stereo flow, and `genconfig` reproducing the --genconfig contract.
+in-process library calls; the CLI exposes them as subcommands (prepare,
+match, autocalibrate, stereo, measure) plus `genconfig` reproducing the
+--genconfig contract.
+
+    python -m wass_tpu.cli.main <command> [arguments]
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
+from typing import Optional, Sequence
 
-import click
 import numpy as np
 
 
-@click.group()
-def cli():
-    """wass_tpu: TPU-native sea-wave stereo reconstruction."""
+class CliError(Exception):
+    """A user-facing failure: printed as `error: ...`, exit status 1."""
+
+
+def _echo(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _existing(path: str) -> str:
+    if not Path(path).exists():
+        raise argparse.ArgumentTypeError(f"path {path!r} does not exist")
+    return path
 
 
 def _load_pipeline(outdir):
@@ -53,25 +65,12 @@ def _load_pipeline(outdir):
 
 
 def _read_gray(path):
-    from wass_tpu import native
+    from wass_tpu.io.png import read_gray
 
-    if native.available() and str(path).lower().endswith(".png"):
-        return native.png_read_gray(path).astype(np.float32)
-    import imageio.v3 as iio
-
-    img = iio.imread(path)
-    if img.ndim == 3:
-        img = img.mean(axis=-1)
-    return img.astype(np.float32)
+    return read_gray(path).astype(np.float32)
 
 
-@cli.command()
-@click.argument("cam0_dir", type=click.Path(exists=True))
-@click.argument("cam1_dir", type=click.Path(exists=True))
-@click.argument("calibdir", type=click.Path(exists=True))
-@click.argument("outdir", type=click.Path())
-@click.option("--continue-if-existing", is_flag=True, default=False)
-def prepare(cam0_dir, cam1_dir, calibdir, outdir, continue_if_existing):
+def prepare(cam0_dir, cam1_dir, calibdir, outdir, continue_if_existing=False):
     """Prepare all frame pairs into workdirs (wass_prepare)."""
     from wass_tpu.cli.pipeline import SequencePipeline
     from wass_tpu.io.matrices import load_matrix
@@ -94,7 +93,7 @@ def prepare(cam0_dir, cam1_dir, calibdir, outdir, continue_if_existing):
     f0 = sorted(Path(cam0_dir).glob("*"))
     f1 = sorted(Path(cam1_dir).glob("*"))
     if len(f0) != len(f1):
-        raise click.ClickException("camera folders contain different frame counts")
+        raise CliError("camera folders contain different frame counts")
 
     pipe = SequencePipeline(outdir)
     frames = ((_read_gray(a), _read_gray(b)) for a, b in zip(f0, f1))
@@ -106,51 +105,33 @@ def prepare(cam0_dir, cam1_dir, calibdir, outdir, continue_if_existing):
 
         prepare_frame(wd_path, img0, img1, K0, d0, K1, d1, pipe.cfg.prepare, ext_R, ext_T)
         progress(i + 1, len(f0))
-    click.echo(f"prepared {len(f0)} frames into {outdir}")
+    _echo(f"prepared {len(f0)} frames into {outdir}")
 
 
-@cli.command()
-@click.argument("outdir", type=click.Path(exists=True))
 def match(outdir):
     """Feature-match a random subset of frames (wass_match)."""
     n = _load_pipeline(outdir).match()
-    click.echo(f"matched {n} frames")
+    _echo(f"matched {n} frames")
 
 
-@cli.command()
-@click.argument("outdir", type=click.Path(exists=True))
 def autocalibrate(outdir):
     """Sequence-wide extrinsic refinement (wass_autocalibrate)."""
     res = _load_pipeline(outdir).autocalibrate()
     if res is None:
-        raise click.ClickException("autocalibration failed (no matches?)")
-    click.echo(
+        raise CliError("autocalibration failed (no matches?)")
+    _echo(
         f"epipolar error {res.epi_med_before:.4f} -> {res.epi_med_after:.4f} px "
         f"({res.n_inliers} inliers, {'accepted' if res.improved else 'kept RANSAC pose'})"
     )
 
 
-@cli.command()
-@click.argument("outdir", type=click.Path(exists=True))
 def stereo(outdir):
     """Dense reconstruction of every frame (wass_stereo)."""
     planes = _load_pipeline(outdir).stereo()
-    click.echo(f"reconstructed {len(planes)} frames")
+    _echo(f"reconstructed {len(planes)} frames")
 
 
-@cli.command()
-@click.argument("workdir", type=click.Path(exists=True))
-@click.argument("pixels", nargs=-1, type=float)
-@click.option("--baseline", type=float, default=None,
-              help="camera baseline in meters; scales the reported distance "
-              "from baseline units to meters")
-@click.option("--radius", type=float, default=10.0,
-              help="max pixel distance between a requested pixel and the "
-              "nearest reconstructed point")
-@click.option("--interactive", is_flag=True, default=False,
-              help="pick the two points by clicking on the cam0 image "
-              "(requires a display)")
-def measure(workdir, pixels, baseline, radius, interactive):
+def measure(workdir, pixels, baseline=None, radius=10.0, interactive=False):
     """Two-point 3D distance on a reconstructed frame.
 
     The wass_stereo --measure workflow (wass_stereo.cpp:1934-1973): the
@@ -174,14 +155,14 @@ def measure(workdir, pixels, baseline, radius, interactive):
         picked = plt.ginput(2, timeout=0)
         plt.close(fig)
         if len(picked) != 2:
-            raise click.ClickException("need exactly two clicked points")
+            raise CliError("need exactly two clicked points")
         pixels = [c for uv in picked for c in uv]
     if len(pixels) != 4:
-        raise click.ClickException("expected 4 coordinates: U0 V0 U1 V1 (or --interactive)")
+        raise CliError("expected 4 coordinates: U0 V0 U1 V1 (or --interactive)")
 
     mesh = wd.load_mesh_cam()  # (3, N) cam0-frame, baseline units
     if mesh.shape[1] == 0:
-        raise click.ClickException("empty mesh_cam.xyzC")
+        raise CliError("empty mesh_cam.xyzC")
     K0 = wd.load_intrinsics(0)
     uv = (K0 @ mesh)
     uv = uv[:2] / uv[2:3]  # (2, N)
@@ -191,25 +172,22 @@ def measure(workdir, pixels, baseline, radius, interactive):
         d2 = (uv[0] - u) ** 2 + (uv[1] - v) ** 2
         j = int(np.argmin(d2))
         if d2[j] > radius * radius:
-            raise click.ClickException(
+            raise CliError(
                 f"no reconstructed point within {radius:g} px of ({u:g}, {v:g})"
             )
         p = mesh[:, j]
-        click.echo(f"({u:g}, {v:g}) -> point #{j} at "
-                   f"[{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}] "
-                   f"(reprojects to {uv[0][j]:.1f}, {uv[1][j]:.1f})")
+        _echo(f"({u:g}, {v:g}) -> point #{j} at "
+              f"[{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}] "
+              f"(reprojects to {uv[0][j]:.1f}, {uv[1][j]:.1f})")
         picked_pts.append(p)
 
     dist = float(measure_distance(picked_pts[0], picked_pts[1]))
-    click.echo(f"distance: {dist:.6f} baseline units")
+    _echo(f"distance: {dist:.6f} baseline units")
     if baseline is not None:
-        click.echo(f"distance: {dist * baseline:.6f} m (baseline {baseline:g} m)")
+        _echo(f"distance: {dist * baseline:.6f} m (baseline {baseline:g} m)")
 
 
-@cli.command()
-@click.argument("outdir", type=click.Path())
-@click.option("--stage", type=click.Choice(["prepare", "matcher", "stereo"]), default="stereo")
-def genconfig(outdir, stage):
+def genconfig(outdir, stage="stereo"):
     """Dump the commented key=value config of a stage (--genconfig)."""
     from wass_tpu.config import registry
     from wass_tpu.cli.options import register_all
@@ -220,12 +198,66 @@ def genconfig(outdir, stage):
     if out.is_dir():
         out = out / f"{stage}_config.txt"
     out.write_text(text)
-    click.echo(f"wrote {out}")
+    _echo(f"wrote {out}")
 
 
-def main():
-    cli()
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="wass_tpu",
+        description="wass_tpu: sea-wave stereo reconstruction in JAX, on an NVIDIA GPU.",
+    )
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prepare", help=prepare.__doc__.splitlines()[0])
+    p.add_argument("cam0_dir", type=_existing)
+    p.add_argument("cam1_dir", type=_existing)
+    p.add_argument("calibdir", type=_existing)
+    p.add_argument("outdir")
+    p.add_argument("--continue-if-existing", action="store_true")
+    p.set_defaults(run=lambda a: prepare(
+        a.cam0_dir, a.cam1_dir, a.calibdir, a.outdir, a.continue_if_existing))
+
+    for name, fn in (("match", match), ("autocalibrate", autocalibrate), ("stereo", stereo)):
+        p = sub.add_parser(name, help=fn.__doc__.splitlines()[0])
+        p.add_argument("outdir", type=_existing)
+        p.set_defaults(run=lambda a, fn=fn: fn(a.outdir))
+
+    p = sub.add_parser("measure", help="Two-point 3D distance on a reconstructed frame.")
+    p.add_argument("workdir", type=_existing)
+    p.add_argument("pixels", nargs="*", type=float)
+    p.add_argument("--baseline", type=float, default=None,
+                   help="camera baseline in meters; scales the reported distance "
+                   "from baseline units to meters")
+    p.add_argument("--radius", type=float, default=10.0,
+                   help="max pixel distance between a requested pixel and the "
+                   "nearest reconstructed point")
+    p.add_argument("--interactive", action="store_true",
+                   help="pick the two points by clicking on the cam0 image "
+                   "(requires a display)")
+    p.set_defaults(run=lambda a: measure(
+        a.workdir, a.pixels, a.baseline, a.radius, a.interactive))
+
+    p = sub.add_parser("genconfig", help=genconfig.__doc__.splitlines()[0])
+    p.add_argument("outdir")
+    p.add_argument("--stage", choices=["prepare", "matcher", "stereo"], default="stereo")
+    p.set_defaults(run=lambda a: genconfig(a.outdir, a.stage))
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """CLI entry: parse argv, run the command; 0 on success, 1 on a
+    user-facing failure (argparse exits with 2 on bad arguments)."""
+    from wass_tpu.utils.compile_cache import enable_compile_cache
+
+    args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    try:
+        args.run(args)
+    except CliError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

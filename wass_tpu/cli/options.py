@@ -6,7 +6,7 @@ wass_match.cpp:39-45 + FeatureSet.cpp:42-47 + GTMatcher.cpp:33; stereo:
 wass_stereo.cpp:52-84,742-761,1030-1037 + PovMesh.cpp:577-579), so
 reference prepare_config.txt / matcher_config.txt / stereo_config.txt
 files load unchanged, and maps them onto the wass_tpu dataclass configs.
-Options whose mechanics differ on TPU (census penalties vs SAD-window
+Options whose mechanics differ here (census penalties vs SAD-window
 P1/P2) are translated where a faithful mapping exists and otherwise
 registered for compatibility with a note.
 """
@@ -41,7 +41,7 @@ def register_all() -> None:
     matcher_cfg.register(float, "MATCHER_MAX_EPI_DISTANCE", 0.5, "Max matches epipolar distance")
     matcher_cfg.register(bool, "MATCHER_SKIP_GT", False, "Skip game-theoretic matcher and use the nearest match only.")
     matcher_cfg.register(float, "FEATURE_MIN_DISTANCE", 0.0, "Minimum distance allowed between two features (in px; 0 = auto: 12 below 1.5 MP, 8 above)")
-    matcher_cfg.register(float, "FEATURE_HESSIAN_THRESHOLD", 0.0001, "Detector determinant-of-Hessian threshold")
+    matcher_cfg.register(float, "FEATURE_HESSIAN_THRESHOLD", 0.0, "Detector determinant-of-Hessian threshold (0 = auto: 1e-4 up to 1.5 MP, 1e-5 above)")
     matcher_cfg.register(int, "FEATURE_N_OCTAVES", 4, "Scale-space octaves")
     matcher_cfg.register(int, "FEATURE_N_LAYERS", 4, "Scale-space layers per octave")
     matcher_cfg.register(int, "FEATURE_INIT_SAMPLES", 1, "Compatibility option (OpenSURF init samples)")

@@ -13,7 +13,7 @@ Re-derivation of the reference's two rectification routes:
   both cameras by the half-rotation, align the x-axis with the baseline,
   and emit rotation+new-projection pairs.
 
-Design split for TPU: these functions are *host-side float64 numpy* — they
+Design split: these functions are *host-side float64 numpy* — they
 run once per frame, need double precision, and produce a handful of 3x3
 matrices; the expensive part (warping megapixel images) happens on device
 via wass_tpu.ops.sampling.warp_homography with static shapes.  The scalar

@@ -7,7 +7,7 @@ grid cells with NREPS=10 random-subsample *median stacking*, interpolate
 the holes (DCT / IDW), optional median filter, and stream frames into the
 NetCDF cube.
 
-TPU shape of the median stacking: the reference scatters a random
+Device shape of the median stacking: the reference scatters a random
 permutation per repetition (last-write-wins) into a (H, W, NREPS) buffer
 and takes nanmedian.  Here each repetition is a jnp scatter with a random
 permutation — identical semantics, batched on device.
@@ -130,7 +130,7 @@ def grid_frame(
     elif cfg.algorithm.upper() == "LINEARND":
         # Delaunay linear interpolation of the (subsampled) scattered
         # points (wassgridsurface.py:437-480); host scipy — the scattered
-        # triangulation has no TPU-friendly shape and this path exists
+        # triangulation has no static, batched shape and this path exists
         # for reference parity.
         from scipy.interpolate import LinearNDInterpolator
 
@@ -299,7 +299,7 @@ def _load_frame_jpeg(wd: Workdir, cam: int):
 
         img = wd.load_undistorted(cam)
         if native.available():
-            data = native.jpeg_encode_gray(img)
+            data = native.jpeg_encode(img)
         else:
             import io
 

@@ -6,7 +6,7 @@ reference scans a 15x15 grid of probe centers, KD-tree-gathers points
 within 0.5 radius, runs a 100-round 3-point plane RANSAC per probe, and
 drops every point that is an outlier of any local fit.
 
-TPU-first equivalent with identical intent (drop points inconsistent
+Device-side equivalent with identical intent (drop points inconsistent
 with the *local* sea surface) but no KD-tree and no per-probe python
 loop: points are binned into the same 15x15 cells, and each cell gets a
 robust local plane via 3 rounds of iteratively-reweighted least squares

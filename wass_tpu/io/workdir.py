@@ -39,27 +39,14 @@ class Workdir:
         return self.path / "undistorted" / f"{cam:08d}.png"
 
     def save_undistorted(self, cam: int, img: np.ndarray) -> None:
-        img8 = np.clip(np.asarray(img), 0, 255).astype(np.uint8)
-        from wass_tpu import native
+        from wass_tpu.io.png import write_gray
 
-        if native.available():
-            native.png_write_gray(self.undistorted_path(cam), img8)
-            return
-        import imageio.v3 as iio
-
-        iio.imwrite(self.undistorted_path(cam), img8)
+        write_gray(self.undistorted_path(cam), img)
 
     def load_undistorted(self, cam: int) -> np.ndarray:
-        from wass_tpu import native
+        from wass_tpu.io.png import read_gray
 
-        if native.available():
-            return native.png_read_gray(self.undistorted_path(cam)).astype(np.float32)
-        import imageio.v3 as iio
-
-        img = iio.imread(self.undistorted_path(cam))
-        if img.ndim == 3:
-            img = img.mean(axis=-1)
-        return np.asarray(img, dtype=np.float32)
+        return np.asarray(read_gray(self.undistorted_path(cam)), dtype=np.float32)
 
     # --- matrices ---------------------------------------------------------
     def save_intrinsics(self, cam: int, K: np.ndarray) -> None:

@@ -6,7 +6,7 @@ KAZE (nonlinear scale space) then area-stratified subsampling with
 min-distance suppression (:176-327).  The contract that matters downstream
 is the matcher quality gates (>=400 matches, <=0.5 px epipolar error,
 /root/reference/test/verify_matcher.m), not descriptor identity, so we use
-a TPU-shaped design:
+a dense, fixed-shape design:
 
 * scale space: Gaussian pyramid at full resolution (separable convolutions
   — XLA-fused stencils);
@@ -159,8 +159,8 @@ def detect_features(
     # --- subpixel: 2D quadratic on the response at the detected scale -----
     # Five point taps gathered directly from the (S, H, W) response stack:
     # indexing the per-feature plane first (responses[sidx] under vmap)
-    # materialized a (max_features, H, W) gather — 14 GB at 1536x1152 x
-    # 2000 features, an HBM OOM on a 16 GB chip.
+    # would materialize a (max_features, H, W) gather — 14 GB at
+    # 1536x1152 x 2000 features.
     sel_sidx = scale_idx[sel_y, sel_x]
 
     def rtap(dy, dx):

@@ -4,7 +4,7 @@ Functional re-derivation of gt_iidyn
 (/root/reference/src/wass_match/iidyn.cpp:520-596): per iteration it picks
 the best pure-strategy deviation (infective strategy), mixes it into the
 population with the optimal share mu, and incrementally maintains Ax —
-O(N) per step.  On TPU the whole loop is a lax.while_loop whose body is a
+O(N) per step.  On device the whole loop is a lax.while_loop whose body is a
 handful of (N,)-vector ops + argmax/argmin reductions, with a `mask`
 extension (the reference's iidyn_m, :265-336) so candidates removed in
 earlier match rounds are excluded without reslicing the payoff matrix —

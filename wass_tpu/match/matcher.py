@@ -1,8 +1,8 @@
-"""Game-theoretic feature matching on the MXU.
+"""Game-theoretic feature matching as dense matrix products.
 
-TPU re-architecture of GTMatcher (/root/reference/src/wass_match/GTMatcher.cpp):
+Device re-architecture of GTMatcher (/root/reference/src/wass_match/GTMatcher.cpp):
 
-* candidate generation: dense descriptor distance matrix on the MXU +
+* candidate generation: dense descriptor distance matrix (one matmul) +
   top-k (replaces FLANN KD-tree kNN, FeatureSet.cpp:419-468), with the
   NNDR shortlist heuristic (GTMatcher.cpp:197-205);
 * payoff matrix: pairwise affine-consistency payoffs (:69-141) built once
@@ -46,12 +46,14 @@ class MatchResult(NamedTuple):
 
 
 def generate_candidates(fa: FeatureSet, fb: FeatureSet, n_per_feature: int = 3, nndr: float = 0.25) -> Candidates:
-    """kNN candidates via an MXU distance matrix (GTMatcher.cpp:180-216)."""
+    """kNN candidates via a matrix-product distance matrix
+    (GTMatcher.cpp:180-216).  HIGHEST precision: the NNDR ratio test and the
+    neighbour order must not change with TF32 products on a GPU."""
     K = fa.desc.shape[0]
     d2 = (
         jnp.sum(fa.desc**2, -1, keepdims=True)
         + jnp.sum(fb.desc**2, -1)[None, :]
-        - 2.0 * fa.desc @ fb.desc.T
+        - 2.0 * jnp.matmul(fa.desc, fb.desc.T, precision=jax.lax.Precision.HIGHEST)
     )
     big = jnp.float32(1e10)
     d2 = jnp.where(fa.valid[:, None] & fb.valid[None, :], d2, big)

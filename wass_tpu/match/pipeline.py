@@ -1,6 +1,6 @@
 """The sparse matching stage (wass_match equivalent).
 
-Orchestrates: feature detection on both undistorted frames -> MXU kNN
+Orchestrates: feature detection on both undistorted frames -> matmul kNN
 candidates -> game-theoretic match rounds -> essential-matrix RANSAC on
 normalized coordinates -> pose recovery -> epipolar-error statistics
 (call stack SURVEY.md §3.2 /
@@ -34,10 +34,9 @@ class MatchConfig:
     # Feature budget.  0 = AUTO (default): resolution-scaled — 2000 at
     # <= 1.5 MP (the reference's fixed budget, wass_match.cpp:39) and
     # 4000 above.  The reference's 2000 under-samples megapixel imagery
-    # (0.06% of pixels at 3 MP vs 0.26% at 1 MP), leaving the >= 400
-    # match gate with only a 1.1x margin at 2048x1536; 4000 + denser NMS
-    # measures 830 matches at a *better* epipolar error (0.163 vs
-    # 0.177 px; bench/_probe_fullres_margin.py, 2026-08-21).
+    # (0.06% of pixels at 3 MP vs 0.26% at 1 MP); 4000 + denser NMS
+    # raises the match count at an equal or better epipolar error
+    # (bench/_probe_fullres_margin.py).
     num_features: int = 0
     n_candidates_per_feature: int = 3
     nndr: float = 0.25
@@ -47,7 +46,12 @@ class MatchConfig:
     max_rounds: int = 20
     max_epi_distance: float = 0.5  # px
     skip_gt: bool = False
-    hessian_threshold: float = 1e-4
+    # Determinant-of-Hessian detection threshold.  0 = AUTO: 1e-4 at
+    # <= 1.5 MP, 1e-5 above.  In float32 (CPU, GPU) the 1e-4 threshold
+    # leaves ~240 pose inliers at 2048x1536, under the >= 400 gate the
+    # reference defines at full resolution; 1e-5 restores the margin
+    # (PERF.md, "Matcher gate on float32 devices").
+    hessian_threshold: float = 0.0
     # Grid-NMS cell size in px.  0 = AUTO: 12 at <= 1.5 MP, 8 above
     # (surface texture scales with resolution, so a fixed 12 px cell
     # caps feature density exactly where the budget grows).
@@ -117,7 +121,7 @@ def match_frame(
         if classify(est) == "noise_heavy":
             # Heavy sensor noise (sigma >= ~5 gray levels, ~20x this
             # imagery's mean texture gradient): NO full-resolution
-            # smoothing level passes the pose gates (ROBUSTNESS_r05
+            # smoothing level passes the pose gates (bench/robustness.py
             # noise_s8_sweep, 7 variants).  A 2x2 block-mean halves the
             # noise while the swell-scale texture survives: half-res
             # matching at the clean sigma measures pooled dR 2.0e-3 /
@@ -155,23 +159,23 @@ def match_frame(
 
     # AUTO feature budget / NMS density: resolution-scaled on the image
     # actually matched (so heavy-noise half-res matching gets the 1 MP
-    # class).  Measured at 2048x1536: 830 matches / 0.163 px vs the
-    # fixed-2000 default's 437 / 0.177 (bench/_probe_fullres_margin.py).
+    # class).
     area_mp = img0.shape[0] * img0.shape[1] / 1e6
     n_feat = cfg.num_features or (2000 if area_mp <= 1.5 else 4000)
     grid_cell = cfg.feature_grid_cell or (12 if area_mp <= 1.5 else 8)
+    hessian_threshold = cfg.hessian_threshold or (1e-4 if area_mp <= 1.5 else 1e-5)
 
     f0 = detect_features(
         jnp.asarray(img0, jnp.float32),
         max_features=n_feat,
-        hessian_threshold=cfg.hessian_threshold,
+        hessian_threshold=hessian_threshold,
         grid_cell=grid_cell,
         area_subdivision=cfg.area_subdivision,
     )
     f1 = detect_features(
         jnp.asarray(img1, jnp.float32),
         max_features=n_feat,
-        hessian_threshold=cfg.hessian_threshold,
+        hessian_threshold=hessian_threshold,
         grid_cell=grid_cell,
         area_subdivision=cfg.area_subdivision,
     )

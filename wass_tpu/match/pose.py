@@ -5,7 +5,8 @@ solver (wass_match.cpp:280, wass_autocalibrate.cpp:177).  A sea surface is
 *quasi-planar*, which makes the 8-point algorithm degenerate (the
 epipolar constraint is satisfied by a 2-parameter family when all points
 lie on a plane) — the very situation 5-point tolerates.  The 5-point
-action-matrix eigendecomposition maps poorly onto TPU (nonsymmetric eig),
+action-matrix eigendecomposition needs a nonsymmetric eig, which XLA does
+not batch well on an accelerator,
 so this module uses a domain-aware equivalent:
 
 * hypotheses are 4-point homographies (the correct minimal model for a
@@ -124,10 +125,10 @@ def _tangent_basis(t: jnp.ndarray):
 def relative_pose_ransac(*args, **kwargs) -> "RelPoseResult":
     """RANSAC + GN relative pose (see _relative_pose_ransac_jit).
 
-    Forces full-f32 matmul precision: TPU f32 dots default to bf16
-    passes, which costs ~5x in recovered pose accuracy on this
-    calibration-critical path (measured dR 5.8e-4 -> 1.1e-4 at 1.77 MP);
-    the matrices here are tiny, so "highest" is free.
+    Forces full-f32 matmul precision: reduced-precision f32 products
+    (TF32 on a GPU) cost recovered pose accuracy on this
+    calibration-critical path; the matrices here are tiny, so "highest"
+    is free.
     """
     with jax.default_matmul_precision("highest"):
         return _relative_pose_ransac_jit(*args, **kwargs)

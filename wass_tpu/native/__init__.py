@@ -43,7 +43,9 @@ def load() -> Optional[ctypes.CDLL]:
     with _build_lock:
         if _lib is not None:
             return _lib
-        if not _LIB_PATH.exists():
+        src = _DIR / "wass_native.cpp"
+        stale = _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime < src.stat().st_mtime
+        if not _LIB_PATH.exists() or stale:
             if not _build():
                 return None
         try:
@@ -53,8 +55,8 @@ def load() -> Optional[ctypes.CDLL]:
         c = ctypes
         lib.wass_png_read_gray.argtypes = [c.c_char_p, c.c_void_p, c.POINTER(c.c_int), c.POINTER(c.c_int)]
         lib.wass_png_write_gray.argtypes = [c.c_char_p, c.c_void_p, c.c_int, c.c_int]
-        lib.wass_jpeg_encode_gray.argtypes = [
-            c.c_void_p, c.c_int, c.c_int, c.c_int,
+        lib.wass_jpeg_encode.argtypes = [
+            c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
             c.POINTER(c.c_void_p), c.POINTER(c.c_ulong),
         ]
         lib.wass_free.argtypes = [c.c_void_p]
@@ -107,14 +109,18 @@ def png_write_gray(path, img: np.ndarray) -> None:
         raise IOError(f"PNG write failed ({st}): {path}")
 
 
-def jpeg_encode_gray(img: np.ndarray, quality: int = 90) -> bytes:
+def jpeg_encode(img: np.ndarray, quality: int = 90) -> bytes:
+    """JPEG bytes of an (H, W) grayscale or (H, W, 3) RGB image."""
     lib = load()
     assert lib is not None
     img = np.ascontiguousarray(np.clip(img, 0, 255).astype(np.uint8))
+    if img.ndim == 3 and img.shape[2] != 3:
+        raise ValueError(f"JPEG needs 1 or 3 channels, got {img.shape[2]}")
     out = ctypes.c_void_p()
     size = ctypes.c_ulong()
-    lib.wass_jpeg_encode_gray(
-        img.ctypes.data_as(ctypes.c_void_p), img.shape[1], img.shape[0], quality,
+    lib.wass_jpeg_encode(
+        img.ctypes.data_as(ctypes.c_void_p), img.shape[1], img.shape[0],
+        1 if img.ndim == 2 else 3, quality,
         ctypes.byref(out), ctypes.byref(size),
     )
     data = ctypes.string_at(out, size.value)

@@ -1,7 +1,7 @@
 // wass_native: C++ host-runtime for the wass_tpu framework.
 //
 // The reference implements its whole pipeline as native executables; in the
-// TPU build the *compute* path is XLA/Pallas, and this library provides the
+// JAX build the *compute* path is XLA plus a CUDA kernel, and this library provides the
 // native host runtime around it — the parts that sit on the frame-streaming
 // critical path at multi-fps rates:
 //
@@ -104,11 +104,11 @@ int wass_png_write_gray(const char* path, const uint8_t* buf, int w, int h) {
 }
 
 // ---------------------------------------------------------------------------
-// JPEG IO (grayscale)
+// JPEG IO (grayscale or RGB)
 // ---------------------------------------------------------------------------
 
-int wass_jpeg_encode_gray(const uint8_t* buf, int w, int h, int quality,
-                          uint8_t** out, unsigned long* out_size) {
+int wass_jpeg_encode(const uint8_t* buf, int w, int h, int components, int quality,
+                     uint8_t** out, unsigned long* out_size) {
     jpeg_compress_struct cinfo;
     jpeg_error_mgr jerr;
     cinfo.err = jpeg_std_error(&jerr);
@@ -118,13 +118,13 @@ int wass_jpeg_encode_gray(const uint8_t* buf, int w, int h, int quality,
     jpeg_mem_dest(&cinfo, out, out_size);
     cinfo.image_width = w;
     cinfo.image_height = h;
-    cinfo.input_components = 1;
-    cinfo.in_color_space = JCS_GRAYSCALE;
+    cinfo.input_components = components;
+    cinfo.in_color_space = components == 3 ? JCS_RGB : JCS_GRAYSCALE;
     jpeg_set_defaults(&cinfo);
     jpeg_set_quality(&cinfo, quality, TRUE);
     jpeg_start_compress(&cinfo, TRUE);
     while (cinfo.next_scanline < cinfo.image_height) {
-        JSAMPROW row = const_cast<uint8_t*>(buf) + (size_t)cinfo.next_scanline * w;
+        JSAMPROW row = const_cast<uint8_t*>(buf) + (size_t)cinfo.next_scanline * w * components;
         jpeg_write_scanlines(&cinfo, &row, 1);
     }
     jpeg_finish_compress(&cinfo);

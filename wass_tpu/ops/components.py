@@ -5,7 +5,7 @@ on the disparity mask (/root/reference/src/wass_stereo/wass_stereo.cpp:966-986)
 and a z-gap-gated flood fill over the grid-organized point cloud
 (PovMesh::cluster_biggest_connected_component,
 /root/reference/src/wass_stereo/PovMesh.cpp:929-987 with 4-neighborhood gating
-in :147-188).  Flood fill is inherently sequential; on TPU we instead run
+in :147-188).  Flood fill is inherently sequential; we instead run
 *min-label propagation*: initialize every valid pixel with its linear index
 and repeatedly propagate the minimum label across valid edges.  Each
 iteration uses segmented associative scans along rows and columns, which
@@ -48,7 +48,6 @@ def label_components(
     edge_h: Optional[jnp.ndarray] = None,
     edge_v: Optional[jnp.ndarray] = None,
     max_iters: int = 12,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     """Label 4-connected components of a validity mask.
 
@@ -63,11 +62,6 @@ def label_components(
       (H, W) int32 labels; invalid pixels get INT32_MAX.  Labels are the
       minimum linear index of each component (not densified).
     """
-    if use_pallas:
-        from wass_tpu.ops.components_pallas import label_components_pallas
-
-        return label_components_pallas(valid, edge_h, edge_v, max_iters)
-
     H, W = valid.shape
     idx = jnp.arange(H * W, dtype=jnp.int32).reshape(H, W)
     init = jnp.where(valid, idx, _INF)
@@ -118,8 +112,8 @@ def _modal_label(labels: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     and find the longest run via a cumulative-max of run boundaries.
     Ties resolve to the smallest label (runs are sorted ascending).
 
-    On large frames the vote runs on a stride-4 systematic subsample: TPU
-    sorts are O(n log^2 n) bitonic and dominate at megapixel scale, and a
+    On large frames the vote runs on a stride-4 systematic subsample: the
+    sort dominates at megapixel scale, and a
     1/16 sample ranks component sizes reliably (the surviving component is
     orders of magnitude larger than outlier blobs)."""
     if labels.size > (1 << 20):
@@ -142,21 +136,20 @@ def biggest_component_mask(
     edge_h: Optional[jnp.ndarray] = None,
     edge_v: Optional[jnp.ndarray] = None,
     max_iters: int = 12,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     """Mask of the largest connected component of `valid`."""
-    labels = label_components(valid, edge_h, edge_v, max_iters, use_pallas=use_pallas)
+    labels = label_components(valid, edge_h, edge_v, max_iters)
     best_label = _modal_label(labels, valid)
     return (labels == best_label) & valid
 
 
-def zgap_component_mask(z: jnp.ndarray, valid: jnp.ndarray, max_zgap: jnp.ndarray, max_iters: int = 12, use_pallas: bool = False) -> jnp.ndarray:
+def zgap_component_mask(z: jnp.ndarray, valid: jnp.ndarray, max_zgap: jnp.ndarray, max_iters: int = 12) -> jnp.ndarray:
     """Largest component where 4-neighbors connect only if |dz| < max_zgap.
 
-    This is the TPU form of PovMesh::cluster_biggest_connected_component
+    This is the data-parallel form of PovMesh::cluster_biggest_connected_component
     (PovMesh.cpp:929-987): the same edge criterion as
     get_non_visited_neighbours (:147-188).
     """
     edge_h = jnp.abs(z[:, :-1] - z[:, 1:]) < max_zgap
     edge_v = jnp.abs(z[:-1, :] - z[1:, :]) < max_zgap
-    return biggest_component_mask(valid, edge_h, edge_v, max_iters, use_pallas=use_pallas)
+    return biggest_component_mask(valid, edge_h, edge_v, max_iters)

@@ -1,6 +1,6 @@
 """Zero-aware morphology and median filtering for disparity maps.
 
-TPU-native forms of the reference's hand-rolled disparity filters:
+Device-side forms of the reference's hand-rolled disparity filters:
 matrix_dilate_zero / matrix_erode_zero
 (/root/reference/src/wass_stereo/wass_stereo.cpp:617-712) and the
 cv::medianBlur call (:941-945).  "Zero" is the invalid-disparity marker, so

@@ -1,6 +1,6 @@
 """Batched image sampling / warping / undistortion kernels.
 
-TPU-native replacements for the cv::remap / cv::undistort /
+Replacements for the cv::remap / cv::undistort /
 cv::warpPerspective / cv::resize calls on the reference's hot paths
 (undistort at /root/reference/src/wass_prepare/wass_prepare.cpp:268, rectify
 warps at /root/reference/src/wass_stereo/wass_stereo.cpp:522-528,605-607,
@@ -14,7 +14,6 @@ Convention: images are (H, W) or (..., H, W) float arrays; coordinates are
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -117,140 +116,6 @@ def warp_homography(
     sy = (Hi[1, 0] * uu + Hi[1, 1] * vv + Hi[1, 2]) / ww
     sampler = bilinear_sample if interp == "linear" else bicubic_sample
     return sampler(img, sx, sy, fill=fill)
-
-
-def warp_homography_twopass(
-    img: jnp.ndarray,
-    H_np: "np.ndarray",
-    out_shape,
-    fill: float = 0.0,
-) -> jnp.ndarray:
-    """Gather-free homography warp (bilinear) for compile-time-static H.
-
-    TPU gathers cost ~150 ms per 3 MP warp; this replaces them with a
-    Catmull-Smith two-pass resample expressed as shift-select sums:
-    rectification displacements are small and smooth (tens of px for
-    stereo rigs), so each 1-D pass is a sum over the static integer-shift
-    range [kmin, kmax] of `where(floor-index == k) * rolled-image` terms
-    — pure elementwise ops + static rolls that XLA fuses into a few
-    streaming passes (~2 ms/warp).
-
-    H is host numpy and becomes a compile-time constant: one compilation
-    per rectification geometry (fixed per sequence — the reference also
-    computes one rectification per sequence).  Two-pass linear resampling
-    differs from direct bilinear only by a sub-pixel vertical offset
-    between adjacent columns (|dH| * 1 px), far below the sensor noise.
-
-    Passes (Catmull-Smith, vertical first):
-      A[y, u] = I(sy_t(y, u), u)   with sy_t(y, u) = sy(x*(u, y), y),
-                x* solving sx(x*, y) = u;
-      O[y, x] = A(y, sx(x, y)).
-    """
-    import numpy as np
-
-    Hi = np.linalg.inv(np.asarray(H_np, np.float64))
-    a, b, c = Hi[0]
-    d, e, f_ = Hi[1]
-    g, h, i_ = Hi[2]
-    Hs, Ws = img.shape
-    Ho, Wo = out_shape
-
-    def _safe_den(den, lib):
-        """Pass-1 column inversion divides by (u*g - a); if the line
-        u = a/g crosses the image width the denominator vanishes there.
-        Clamp its magnitude: the affected columns map outside the image
-        after the [-1, Hs] clip and are removed by the validity gate."""
-        tiny = 1e-9
-        sgn = lib.where(den >= 0, 1.0, -1.0)
-        return lib.where(lib.abs(den) < tiny, sgn * tiny, den)
-
-    # ---- host: static shift ranges from a stride-4 grid (+2 margin) -----
-    ug = np.arange(0, Ws, 4, dtype=np.float64)
-    yg = np.arange(0, Ho, 4, dtype=np.float64)
-    UU, YY = np.meshgrid(ug, yg)
-    xs = (b * YY + c - UU * (h * YY + i_)) / _safe_den(UU * g - a, np)
-    syt_h = (d * xs + e * YY + f_) / (g * xs + h * YY + i_)
-    syt_h = np.clip(syt_h, -1.0, Hs)
-    k1min = int(np.floor(syt_h - YY).min()) - 2
-    k1max = int(np.floor(syt_h - YY).max()) + 2
-
-    xg = np.arange(0, Wo, 4, dtype=np.float64)
-    XX, YY2 = np.meshgrid(xg, yg)
-    den = g * XX + h * YY2 + i_
-    sx_h = np.clip((a * XX + b * YY2 + c) / den, -1.0, Ws)
-    k2min = int(np.floor(sx_h - XX).min()) - 2
-    k2max = int(np.floor(sx_h - XX).max()) + 2
-
-    # ---- device: pass 1 (vertical resample per source column) -----------
-    dt = img.dtype
-    uu = jnp.arange(Ws, dtype=dt)[None, :]
-    yy = jnp.arange(Ho, dtype=dt)[:, None]
-    xs_d = (b * yy + c - uu * (h * yy + i_)) / _safe_den(uu * g - a, jnp)
-    syt = (d * xs_d + e * yy + f_) / (g * xs_d + h * yy + i_)
-    syt = jnp.clip(syt, -1.0, float(Hs))
-    p0 = jnp.floor(syt)
-    fr1 = syt - p0
-    k1 = p0.astype(jnp.int32) - jnp.arange(Ho, dtype=jnp.int32)[:, None]
-
-    # Edge-replicated source (top+bottom rows) so shifts never wrap data
-    # into the interior; out-of-image samples are edge clones and the
-    # final validity gate removes them.
-    Iv = jnp.concatenate([img[:1], img, img[-1:]], axis=0)
-
-    pad_top = max(0, -(k1min + 1))
-    pad_bot = max(0, k1max + 2 + Ho - (Hs + 2))
-    Iv_pad = jnp.pad(Iv, ((pad_top, pad_bot), (0, 0)), mode="edge")
-    A = jnp.zeros((Ho, Ws), dt)
-    for kk in range(k1min, k1max + 2):
-        w = jnp.where(k1 == kk, 1.0 - fr1, 0.0) + jnp.where(k1 == kk - 1, fr1, 0.0)
-        # source row y + kk  ->  padded row index y + kk + 1 + pad_top
-        sl = jax.lax.dynamic_slice_in_dim(Iv_pad, kk + 1 + pad_top, Ho, axis=0)
-        A = A + w * sl
-
-    # ---- device: pass 2 (horizontal resample per output row) ------------
-    xx = jnp.arange(Wo, dtype=dt)[None, :]
-    yy2 = jnp.arange(Ho, dtype=dt)[:, None]
-    den_d = g * xx + h * yy2 + i_
-    sx = (a * xx + b * yy2 + c) / den_d
-    sy = (d * xx + e * yy2 + f_) / den_d
-    sx_cl = jnp.clip(sx, -1.0, float(Ws))
-    q0 = jnp.floor(sx_cl)
-    fr2 = sx_cl - q0
-    k2 = q0.astype(jnp.int32) - jnp.arange(Wo, dtype=jnp.int32)[None, :]
-
-    Ah = jnp.concatenate([A[:, :1], A, A[:, -1:]], axis=1)
-    O = jnp.zeros((Ho, Wo), dt)
-    Ah_pad = jnp.pad(
-        Ah, ((0, 0), (max(0, -(k2min + 1)), max(0, k2max + 2 + Wo - (Ws + 2)))), mode="edge"
-    )
-    for kk in range(k2min, k2max + 2):
-        w = jnp.where(k2 == kk, 1.0 - fr2, 0.0) + jnp.where(k2 == kk - 1, fr2, 0.0)
-        sl = jax.lax.dynamic_slice_in_dim(
-            Ah_pad, kk + 1 + max(0, -(k2min + 1)), Wo, axis=1
-        )
-        O = O + w * sl
-
-    valid = (sx >= 0) & (sx <= Ws - 1) & (sy >= 0) & (sy <= Hs - 1)
-    return jnp.where(valid, O, fill)
-
-
-@lru_cache(maxsize=64)
-def _twopass_jitted(H_bytes: bytes, out_shape, dtype_str: str):
-    import numpy as np
-
-    H_np = np.frombuffer(H_bytes, np.float64).reshape(3, 3)
-    return jax.jit(
-        lambda img: warp_homography_twopass(img, H_np, out_shape)
-    )
-
-
-def warp_homography_twopass_cached(img, H_np, out_shape):
-    """jit-cached entry for the static-H two-pass warp (one compiled
-    executable per (H, shape) pair — H is fixed per sequence)."""
-    import numpy as np
-
-    key = np.ascontiguousarray(np.asarray(H_np, np.float64)).tobytes()
-    return _twopass_jitted(key, tuple(out_shape), str(img.dtype))(img)
 
 
 def distort_points(pts: jnp.ndarray, K: jnp.ndarray, dist: jnp.ndarray) -> jnp.ndarray:

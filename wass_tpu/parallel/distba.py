@@ -5,7 +5,7 @@ process and runs libsba serially (SURVEY.md §3.3).  Here the pooled point
 blocks are *sharded across devices*: each shard computes its local point
 Jacobians, 3x3 block inverses and Schur contributions, and only the tiny
 reduced camera system (6x6 + gradient + scalar cost) crosses the
-interconnect via psum each LM iteration — O(100 bytes) of ICI traffic per
+interconnect via psum each LM iteration — O(100 bytes) of traffic per
 step regardless of point count.
 """
 
@@ -18,7 +18,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from wass_tpu.calib.ba import BAResult, lm_refine_two_view
 
@@ -45,14 +44,14 @@ def lm_refine_two_view_sharded(
     assert N % n_dev == 0, "pad the point batch to a multiple of the mesh size"
 
     fn = partial(lm_refine_two_view, max_iters=max_iters, axis_name=axis)
-    sharded = shard_map(
+    sharded = jax.shard_map(
         fn,
         mesh=mesh,
         in_specs=(P(), P(), P(axis), P(axis), P(axis), P(axis)),
         out_specs=BAResult(
             R=P(), T=P(), X=P(axis), initial_cost=P(), final_cost=P(), n_iters=P()
         ),
-        check_rep=False,
+        check_vma=False,
     )
     return sharded(R_init, T_init, X_init, p0, p1, mask)
 

@@ -6,9 +6,9 @@ mesh shards the frame-batch dimension of every per-frame array, and the
 sequence-wide reductions (autocalibration match pooling, plane statistics)
 become jax.lax collectives over that axis.
 
-On a multi-host pod slice, jax.distributed.initialize() + the same mesh
-spans all hosts; frames ride the data-parallel axis so no per-frame
-communication crosses ICI at all, and only the autocalibrate gather /
+On several hosts, jax.distributed.initialize() + the same mesh spans all
+of them; frames ride the data-parallel axis so no per-frame communication
+crosses the interconnect at all, and only the autocalibrate gather /
 plane statistics use collectives.
 """
 

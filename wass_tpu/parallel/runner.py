@@ -1,12 +1,11 @@
 """Frame-sharded sequence runner: batches of stereo frames across a mesh.
 
-The multi-chip/multi-host production path.  Design (TPU-native, SPMD):
-one frame per device per step, expressed with jax.shard_map over a
-("frame",) mesh — inside the shard the local batch axis is squeezed away
-and the *unbatched* per-frame pipeline runs, so every Pallas kernel
-(SGM aggregation, windowed c2f cost, connected components) executes
-exactly as in the single-device path with no custom-call partitioning or
-vmap rules involved.  XLA inserts the only collective of the step (the
+The multi-device/multi-host production path.  Design (SPMD): one frame
+per device per step, expressed with jax.shard_map over a ("frame",) mesh —
+inside the shard the local batch axis is squeezed away and the
+*unbatched* per-frame pipeline runs, so the SGM kernel executes exactly
+as in the single-device path with no custom-call partitioning or vmap
+rules involved.  XLA inserts the only collective of the step (the
 sequence mean-plane reduction) from a plain jnp.nanmean over the sharded
 plane array.
 
@@ -14,7 +13,7 @@ This replaces the reference's "N worker processes over a shared
 filesystem" scaling model (/root/reference/cli/wasscli/wasscli.py:48,277,
 346; docs: getting_started.html.md:40-47).
 
-On a pod slice, call jax.distributed.initialize() first; the same code
+On several hosts, call jax.distributed.initialize() first; the same code
 then spans hosts, with each host feeding its local shard of frames:
 _put switches to jax.make_array_from_process_local_data when
 jax.process_count() > 1, so each process passes ONLY the frames its
@@ -38,18 +37,15 @@ from wass_tpu.stereo.dense import (
     DenseStereoConfig,
     DenseFrameResult,
     _c2f_active,
+    _jit_c2f_coarse,
+    _jit_c2f_windows,
     c2f_should_fallback,
-    dense_stereo_device,
+    disparity_postprocess,
     _stage_disparity,
     _stage_points,
     _stage_plane,
 )
 from wass_tpu.ops.sampling import warp_homography
-
-try:  # jax >= 0.4.35 exports shard_map at top level
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 
 def _frame_pipeline(bi, mi, gp, cfg: DenseStereoConfig, rectified: bool):
@@ -65,44 +61,14 @@ def _frame_pipeline(bi, mi, gp, cfg: DenseStereoConfig, rectified: bool):
         mr = warp_homography(mi, gp["H_match"], mi.shape)
 
     if _c2f_active(cfg, br.shape):
-        from wass_tpu.stereo.c2f import (
-            TILE_ROWS, compute_row_windows, coarse_num_disp, downsample_pool,
-            wta_disparity_windowed,
-        )
-        from wass_tpu.stereo.sgm import sgm_disparity
-        from wass_tpu.stereo.cost import census_transform
-        from wass_tpu.stereo.sgm_pallas import (
-            census_cost_volume_pallas_windowed, sgm_aggregate_pallas_windowed,
-        )
+        from wass_tpu.stereo.c2f import sgm_disparity_windowed
 
-        bc = downsample_pool(br, cfg.c2f_factor)
-        mc = downsample_pool(mr, cfg.c2f_factor)
-        disp_c = sgm_disparity(
-            bc, mc,
-            num_disp=coarse_num_disp(cfg.num_disp, cfg.c2f_factor),
-            min_disp=max(1, cfg.min_disp // cfg.c2f_factor),
-            P1=cfg.p1, P2=cfg.p2,
-            directions=cfg.directions if cfg.directions != 5 else 8,
-            census_win=cfg.census_win,
-            uniqueness_ratio=cfg.uniqueness_ratio,
-            use_pallas=True,
+        disp_c = _jit_c2f_coarse.__wrapped__(br, mr, cfg)
+        wstart, cov, offb = _jit_c2f_windows.__wrapped__(disp_c, cfg)
+        disp = sgm_disparity_windowed(
+            br, mr, wstart, cfg.c2f_window, cfg.p1, cfg.p2, cfg.directions,
+            cfg.census_win, cfg.uniqueness_ratio, cfg.input_smooth_sigma,
         )
-        wstart, cov, offb = compute_row_windows(
-            disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window
-        )
-        cb = census_transform(br, cfg.census_win, cfg.input_smooth_sigma)
-        cm = census_transform(mr, cfg.census_win, cfg.input_smooth_sigma)
-        cost = census_cost_volume_pallas_windowed(
-            cb, cm, wstart, cfg.c2f_window, cfg.num_disp, cfg.min_disp
-        )
-        agg = sgm_aggregate_pallas_windowed(
-            cost, wstart, cfg.p1, cfg.p2, cfg.directions
-        )
-        disp = wta_disparity_windowed(
-            agg, jnp.repeat(wstart, TILE_ROWS), cfg.uniqueness_ratio
-        )
-        from wass_tpu.stereo.dense import disparity_postprocess
-
         disp = disparity_postprocess(disp, cfg)
     else:
         disp = _stage_disparity.__wrapped__(br, mr, cfg)
@@ -133,7 +99,7 @@ def build_sharded_step(mesh: Mesh, cfg: DenseStereoConfig, rectified: bool):
     # (unvarying consts) and become frame-varying through the scan, which
     # the varying-manual-axes checker rejects; the computation itself is
     # embarrassingly frame-parallel.
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(spec, spec, spec),
         out_specs=(spec, spec, spec),
@@ -196,8 +162,7 @@ class ShardedDenseRunner:
     Each frame carries its own geometry (geom_pack entries are batched);
     fixed-rig sequences simply feed identical packs.  When every frame of
     a batch shares one rectification homography, pass rectified inputs
-    (pre-warped host-side with the static-H two-pass warp, ~75x cheaper
-    than the in-graph gather warp) and rectified=True.
+    (warped once per frame before sharding) and rectified=True.
 
     c2f safety: the step returns per-frame window coverage/offband
     diagnostics; ONLY the frames that trip c2f_should_fallback are re-run,
@@ -255,7 +220,7 @@ class ShardedDenseRunner:
 
     def _put(self, base_img, match_img, geom_packs):
         """Upload one batch.  Single-process: plain device_put against the
-        global NamedSharding.  Multi-process (pod slice / jax.distributed):
+        global NamedSharding.  Multi-process (jax.distributed):
         device_put with non-addressable devices is invalid, so each process
         feeds ONLY its local frames via
         jax.make_array_from_process_local_data — base_img/match_img/
@@ -352,7 +317,7 @@ class ShardedDenseRunner:
 
 
 def initialize_multihost(coordinator: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None):
-    """jax.distributed bootstrap for pod slices; no-op on a single host."""
+    """jax.distributed bootstrap for several hosts; no-op on a single host."""
     if coordinator is None:
         return False
     jax.distributed.initialize(

@@ -4,7 +4,7 @@ Ports of /root/reference/postproc/wasspost/geometry.py:
 
 * compute_slope_and_normals (:5-17): np.gradient slopes + upward normals;
 * compute_occlusion_mask (:21-100): per-grid-point ray marching over the
-  elevation field.  The reference steps a shrinking seed list; on TPU the
+  elevation field.  The reference steps a shrinking seed list; here the
   march is a fixed-bound lax.while_loop over the *full* ray batch with
   an active mask (dead rays simply stop contributing), keeping shapes
   static.

@@ -4,7 +4,7 @@ The reference applies CLAHE optionally before undistortion
 (/root/reference/src/wass_prepare/wass_prepare.cpp:257-262, options
 CAM{0,1}_CLAHE_{CLIPLIMIT,TILEGRIDSIZE} :36-39).
 
-TPU shape: per-tile histograms by one scatter-add, clip + uniform excess
+Device shape: per-tile histograms by one scatter-add, clip + uniform excess
 redistribution, cumsum CDF -> per-tile LUT, then per-pixel bilinear
 interpolation between the four neighboring tile LUTs (a gather).
 """

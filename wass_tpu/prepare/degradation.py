@@ -6,7 +6,7 @@ to absorb sensor noise and compression artifacts
 robustness study (/root/reference/test/jpeg_compression_test.m:31-40)
 whose conclusion is "store lossless or q>=95".  Our matcher/dense stages
 instead expose an explicit Gaussian pre-smoothing sigma — and the
-round-4 study (ROBUSTNESS_r04.json) measured that no single sigma
+robustness study (bench/robustness.py) measured that no single sigma
 dominates: 0.8 is right for clean input (1.5 blows the clean pooled-dT
 gate), 1.5 rescues sensor noise sigma=3, and 2.5 rescues deep JPEG
 (q90/q70) but breaks the noise case.  That is a per-sequence decision a
@@ -102,7 +102,7 @@ BLOCKY_ON = 1.85  # JPEG q <= ~93
 # of the census/detector programs).  noise_heavy carries an additional
 # ACTION for the matcher: match_frame downsamples the pair 2x (block
 # mean) and applies the clean sigma there — the only measured-passing
-# configuration at sigma=8 (ROBUSTNESS_r05 noise_s8_sweep + half-res
+# configuration at sigma=8 (bench/robustness.py noise_s8_sweep + half-res
 # probe: pooled dR 2.0e-3 / dT 1.7e-2).
 _MATCH_SIGMA = {"clean": 0.8, "noise": 1.5, "noise_heavy": 0.8, "jpeg": 2.5}
 _DENSE_SIGMA = {"clean": 0.8, "noise": 1.5, "noise_heavy": 1.5, "jpeg": 0.8}
@@ -129,7 +129,7 @@ def auto_smooth_sigma(est: DegradationEstimate, stage: str = "match") -> float:
             degrades the clean dT gate), sensor noise -> 1.5 (rescues
             sigma=3: pooled 2.1e-2/3.7e-2 -> 3.0e-3/3.4e-3), deep JPEG
             -> 2.5 (rescues q90 to 4.8e-4/1.4e-3 and q70 to
-            1.3e-3/1.5e-2).  All numbers: ROBUSTNESS_r04/r05.
+            1.3e-3/1.5e-2).  All numbers: bench/robustness.py sweeps.
     dense:  0.8 baseline (q95 elevation 0.0205 -> 0.0170, inside the
             0.02 gate, at ~2% clean cost); sensor noise -> 1.5 (best
             measured, 0.0795 -> 0.0579).

@@ -83,8 +83,7 @@ def prepare_image(
     tiles = (max(H // tile_px, 1), max(W // tile_px, 1)) if tile_px > 0 else (0, 0)
     if tiles == (0, 0) and not np.any(np.asarray(dist)):
         # Zero distortion and no CLAHE: cv::undistort degenerates to the
-        # identity (wass_prepare.cpp:268) — skip the device remap (the
-        # 2-D gather is the one image op the TPU compiler handles badly).
+        # identity (wass_prepare.cpp:268) — skip the device remap.
         return np.clip(np.asarray(img, np.float64), 0, 255)
     out = _prepare_device(imgj, Kj, dj, tiles, clip)
     return np.clip(np.asarray(out), 0, 255)

@@ -15,8 +15,9 @@ the full-resolution census/SGM/WTA only inside the window:
 Window robustness: per-row coarse min/max are smoothed over neighbor
 rows, rows with no coarse evidence inherit the global range, and the
 window is centered so a (win - rowrange)/2 margin guards against coarse
-quantization error.  The windowed kernels live in sgm_pallas.py; this
-module is the pure-jnp orchestration (testable in interpret mode).
+quantization error.  The windowed cost volume and aggregation are the
+ordinary ones with per-row offsets (stereo/cost.census_cost_volume,
+stereo/sgm.aggregate); this module holds the windows and the orchestration.
 """
 
 from __future__ import annotations
@@ -27,13 +28,10 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
-from wass_tpu.stereo.sgm import sgm_disparity, wta_disparity
-from wass_tpu.stereo.sgm_pallas import (
-    census_cost_volume_pallas_windowed,
-    sgm_aggregate_pallas_windowed,
-)
+from wass_tpu.stereo.cost import census_cost_volume, census_transform
+from wass_tpu.stereo.sgm import aggregate, sgm_disparity, wta_disparity
 
-TILE_ROWS = 8  # row-tile granularity of the windowed cost kernel
+TILE_ROWS = 8  # rows that share one disparity window
 
 
 def downsample_pool(img: jnp.ndarray, factor: int) -> jnp.ndarray:
@@ -172,22 +170,22 @@ def c2f_supported(
     H: int, W: int, num_disp: int, win_disp: int, factor: int, directions: int,
     lr_max_diff: int = -1,
 ) -> bool:
-    """Static-shape conformance for the windowed kernels."""
+    """Static-shape conformance: the coarse pass pools factor x factor
+    blocks, each window covers TILE_ROWS full-res rows (a whole number of
+    coarse rows), and the windowed WTA has no left-right check."""
     return (
         0 < win_disp < num_disp
-        and win_disp % 4 == 0
-        and num_disp % 4 == 0
-        and H % (factor * TILE_ROWS) == 0
+        and TILE_ROWS % factor == 0
+        and H % TILE_ROWS == 0
         and W % factor == 0
-        and (H // factor) % TILE_ROWS == 0
-        and directions in (2, 5, 8)
+        and directions in (2, 4, 5, 8)
         and lr_max_diff < 0
     )
 
 
 def coarse_num_disp(num_disp: int, factor: int) -> int:
-    """Coarse search range covering num_disp / factor, rounded up to the
-    cost kernel's packing granularity."""
+    """Coarse search range covering num_disp / factor, rounded up to a
+    multiple of 8."""
     n = -(-num_disp // factor)
     return -(-n // 8) * 8
 
@@ -204,18 +202,10 @@ def sgm_disparity_c2f(
     uniqueness_ratio: int = 1,
     factor: int = 4,
     win_disp: int = 128,
-    use_pallas: bool = True,
-    interpret: bool = False,
     input_smooth_sigma: float = 0.0,
 ) -> jnp.ndarray:
     """End-to-end coarse-to-fine disparity (monolithic-jit variant; the
-    production CLI uses the fine-grained jit pieces in stereo/dense.py).
-
-    use_pallas selects compiled Mosaic kernels for the *coarse* pass; the
-    windowed fine kernels are Pallas-only and run interpreted when
-    interpret=True (CPU tests)."""
-    from wass_tpu.stereo.cost import census_transform
-
+    production CLI uses the fine-grained jit pieces in stereo/dense.py)."""
     H, W = base_img.shape
     assert c2f_supported(H, W, num_disp, win_disp, factor, directions)
 
@@ -231,26 +221,34 @@ def sgm_disparity_c2f(
         directions=directions if directions != 5 else 8,
         census_win=census_win,
         uniqueness_ratio=uniqueness_ratio,
-        use_pallas=use_pallas,
     )
     wstart, _cov, _offband = compute_row_windows(
         disp_c, factor, num_disp, min_disp, win_disp
     )
+    return sgm_disparity_windowed(
+        base_img, match_img, wstart, win_disp, P1, P2, directions,
+        census_win, uniqueness_ratio, input_smooth_sigma,
+    )
+
+
+def sgm_disparity_windowed(
+    base_img: jnp.ndarray,
+    match_img: jnp.ndarray,
+    wstart: jnp.ndarray,
+    win_disp: int,
+    P1: int = 8,
+    P2: int = 96,
+    directions: int = 8,
+    census_win: Tuple[int, int] = (7, 9),
+    uniqueness_ratio: int = 1,
+    input_smooth_sigma: float = 0.0,
+) -> jnp.ndarray:
+    """Full-resolution disparity searched only inside the per-tile windows
+    [wstart[t], wstart[t] + win_disp) (census -> windowed cost -> SGM ->
+    windowed WTA)."""
+    off_rows = jnp.repeat(wstart.astype(jnp.int32), TILE_ROWS)
     cb = census_transform(base_img, census_win, input_smooth_sigma)
     cm = census_transform(match_img, census_win, input_smooth_sigma)
-    cost = census_cost_volume_pallas_windowed(
-        cb, cm, wstart, win_disp, num_disp, min_disp, interpret=interpret
-    )
-    off_rows = jnp.repeat(wstart, TILE_ROWS)
-    if directions in (5, 8):
-        from wass_tpu.stereo.sgm_pallas import sgm_wta_fused_pallas_windowed
-
-        d = sgm_wta_fused_pallas_windowed(
-            cost, wstart, P1, P2, directions, uniqueness_ratio,
-            interpret=interpret,
-        )
-        return jnp.where(d == 0.0, 0.0, d - 1.0 + off_rows[:, None].astype(jnp.float32))
-    agg = sgm_aggregate_pallas_windowed(
-        cost, wstart, P1, P2, directions, interpret=interpret
-    )
+    cost = census_cost_volume(cb, cm, win_disp, offsets=off_rows)
+    agg = aggregate(cost, P1, P2, directions, off_rows)
     return wta_disparity_windowed(agg, off_rows, uniqueness_ratio)

@@ -1,13 +1,12 @@
 """Matching-cost construction for dense stereo.
 
 The reference relies on cv::StereoSGBM's Birchfield-Tomasi + SAD-window
-cost (/root/reference/src/wass_stereo/wass_stereo.cpp:777-837).  On TPU we
-use the census transform + Hamming distance: it is illumination-robust
-(important on specular sea surfaces), integer-only, and maps onto the VPU
-as pure bitwise ops + jax.lax.population_count — no windowed SAD gathers.
+cost (/root/reference/src/wass_stereo/wass_stereo.cpp:777-837).  We use
+the census transform + Hamming distance instead: it is illumination-robust
+(important on specular sea surfaces), integer-only, and is pure bitwise
+ops + jax.lax.population_count — no windowed SAD sums.
 
-Layout: cost volumes are (H, W, D) with the disparity axis innermost
-(lane dimension, a multiple of 128 for clean tiling).
+Layout: cost volumes are (H, W, D) with the disparity axis innermost.
 
 Disparity convention follows the reference (wass_stereo.cpp:820-837 and the
 xl reconstruction at :1180): the *right* rectified image is the matching
@@ -17,8 +16,7 @@ for disparity d in [min_disparity, min_disparity + D).
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -87,38 +85,45 @@ def census_cost_volume(
     census_match: jnp.ndarray,
     num_disp: int,
     min_disp: int = 0,
+    offsets: Optional[jnp.ndarray] = None,
 ) -> jnp.ndarray:
-    """Full (H, W, D) uint8 cost volume.
+    """(H, W, num_disp) uint8 cost volume, built directly in that layout.
 
-    cost[y, x, j] = hamming(base[y, x], match[y, x - (min_disp + j)]).
-    Out-of-image matches get the maximal cost (census bit width), so they
-    never win the WTA.
+    cost[y, x, j] = hamming(base[y, x], match[y, x - d]) with
+    d = min_disp + j, or d = offsets[y] + j for a windowed volume
+    (offsets: (H,) int32 per-row window starts, stereo/c2f.py).
+    Out-of-image matches (x - d < 0) get the maximal cost (census bit
+    width), so they never win the WTA.
+
+    Rows are processed in blocks under lax.map, so the gathered match
+    words of one block are the largest intermediate.
     """
     H, W, nw = census_base.shape
-    nbits = 0
-    # Upper bound of the hamming distance = number of census bits.
-    # (wy*wx - 1); reconstruct from packing: conservative 32*nw.
     max_cost = jnp.uint8(min(32 * nw, 255))
+    if offsets is None:
+        off = jnp.full((H,), min_disp, jnp.int32)
+    else:
+        off = offsets.astype(jnp.int32)
+    R = next(r for r in (16, 8, 4, 2, 1) if H % r == 0)
+    j = jnp.arange(num_disp, dtype=jnp.int32)[None, None, :]
+    x = jnp.arange(W, dtype=jnp.int32)[None, :, None]
 
-    def cost_for_disp(j):
-        d = min_disp + j
-        shifted = jnp.roll(census_match, d, axis=1)
-        c = hamming(census_base, shifted)
-        xx = jnp.arange(W)[None, :]
-        valid = xx - d >= 0
-        return jnp.where(valid, c, max_cost)
+    def block(args):
+        cb, cm, o = args  # (R, W, nw), (R, W, nw), (R,)
+        src = x - o[:, None, None] - j  # match column, (R, W, D)
+        idx = jnp.clip(src, 0, W - 1).reshape(R, W * num_disp)
+        c = jnp.zeros((R, W, num_disp), jnp.uint8)
+        for w in range(nw):
+            g = jnp.take_along_axis(cm[..., w], idx, axis=1).reshape(R, W, num_disp)
+            c = c + jax.lax.population_count(cb[..., w][..., None] ^ g).astype(jnp.uint8)
+        return jnp.where(src >= 0, c, max_cost)
 
-    # Chunked over the disparity axis: a full vmap would materialize the
-    # (D, H, W, words) shifted tensor (6+ GB at 3 MP / 256 disparities), a
-    # scalar map pays ~256 sequential dispatch steps.  Chunks of 32 keep the
-    # peak at ~(32, H, W, words) while needing only D/32 steps.
-    chunk = min(32, num_disp)
-    n_chunks = -(-num_disp // chunk)
-    padded = n_chunks * chunk
-
-    def chunk_fn(j0):
-        return jax.vmap(lambda j: cost_for_disp(j0 + j))(jnp.arange(chunk))
-
-    vols = jax.lax.map(chunk_fn, jnp.arange(n_chunks) * chunk)  # (n, chunk, H, W)
-    vols = vols.reshape(padded, H, W)[:num_disp]
-    return jnp.transpose(vols, (1, 2, 0))  # (H, W, D)
+    vols = jax.lax.map(
+        block,
+        (
+            census_base.reshape(H // R, R, W, nw),
+            census_match.reshape(H // R, R, W, nw),
+            off.reshape(H // R, R),
+        ),
+    )
+    return vols.reshape(H, W, num_disp)

@@ -1,4 +1,4 @@
-"""Optical-flow reconstruction path (TPU-native).
+"""Optical-flow reconstruction path.
 
 Equivalent of the reference's compile-time-optional dense flow stage
 (`/root/reference/src/wass_stereo/wass_stereo.cpp:1391-1775`, enabled by
@@ -9,7 +9,7 @@ correspondence field is densified, refined with a two-scale variational
 correspondences are triangulated into a second point cloud
 (`mesh_full_flow.ply`).
 
-TPU-first redesign of each step:
+Device-side redesign of each step:
 
 * coarse flow (`refine_flow` KD-tree IDW, `wass_stereo.cpp:1592-1626`):
   the reference scatters sparse stereo correspondences into a KD-tree

@@ -1,6 +1,6 @@
 """Mean-sea-plane estimation: RANSAC + weighted least-squares refinement.
 
-TPU-native form of PovMesh::ransac_find_plane / refine_plane / crop_plane
+Batched device form of PovMesh::ransac_find_plane / refine_plane / crop_plane
 (/root/reference/src/wass_stereo/PovMesh.cpp:665-815): instead of 400
 sequential rounds, all hypotheses are drawn and scored as one batched
 program — hypothesis generation is a gather, inlier counting is a masked
@@ -21,8 +21,14 @@ class PlaneFit(NamedTuple):
     ok: jnp.ndarray  # bool: inliers >= 10% of valid points (PovMesh.cpp:772)
 
 
+# Gate quantities (RANSAC inlier distances, the refinement's centroid and
+# covariance) are float32 products pinned to HIGHEST: a GPU may otherwise
+# run them in TF32 (~3 decimal digits), which moves points across the
+# inlier threshold.
+
+
 def plane_distance(plane: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
-    return jnp.abs(pts @ plane[:3] + plane[3])
+    return jnp.abs(jnp.matmul(pts, plane[:3], precision=jax.lax.Precision.HIGHEST) + plane[3])
 
 
 def ransac_find_plane(
@@ -83,7 +89,7 @@ def ransac_find_plane(
     # (an (N, 3) x (3, rounds) product) instead of `rounds` separate
     # passes — the per-round formulation re-read the point sample 400
     # times.  f32 precision: inlier membership at the threshold must not
-    # wobble with bf16 matmul passes.
+    # wobble with reduced-precision matmul passes.
     dist = jnp.abs(
         jnp.einsum(
             "nc,rc->nr", pts_s, planes[:, :3],
@@ -128,9 +134,12 @@ def refine_plane(
         m = m & (x > xmin) & (x < xmax) & (y > ymin) & (y < ymax)
     w = jnp.where(m, dist if weight_by_distance else 1.0, 0.0)
     wsum = jnp.maximum(jnp.sum(w), 1e-20)
-    centroid = jnp.einsum("...c,...->c", points, w) / wsum
+    centroid = jnp.einsum("...c,...->c", points, w, precision=jax.lax.Precision.HIGHEST) / wsum
     diff = jnp.where(m[..., None], points - centroid, 0.0)
-    A = jnp.einsum("...i,...j,...->ij", diff, diff, jnp.where(m, w, 0.0))
+    A = jnp.einsum(
+        "...i,...j,...->ij", diff, diff, jnp.where(m, w, 0.0),
+        precision=jax.lax.Precision.HIGHEST,
+    )
     # Smallest eigenvector of the 3x3 weighted covariance.
     evals, evecs = jnp.linalg.eigh(A)
     n = evecs[:, 0]

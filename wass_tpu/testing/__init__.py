@@ -1,1 +1,3 @@
-from wass_tpu.testing.synthetic import SyntheticScene, SyntheticRig, make_scene, make_rig  # noqa: F401
+from wass_tpu.testing.synthetic import (  # noqa: F401
+    SyntheticScene, SyntheticRig, add_offband_object, make_rig, make_scene,
+)

@@ -57,6 +57,7 @@ def _value_noise(rng: np.random.Generator, n_octaves: int = 5, base: int = 8):
             norm += amp
         return out / norm
 
+    sample.grids = grids
     return sample
 
 
@@ -255,6 +256,79 @@ def _trace_rays(origin: np.ndarray, dirs: np.ndarray, waves: WaveField, iters: i
     return t
 
 
+def add_offband_object(img0: np.ndarray, img1: np.ndarray, y0: int, x0: int,
+                       size: int, disparity: int, seed: int = 0) -> None:
+    """Paste one textured square (a buoy or boat close to the rig) into a
+    pair in place: at column x0 in img0 and x0 - disparity in img1, i.e. at
+    a disparity far outside the sea's band on those rows.  The texture is
+    blocky (8 px cells) so it survives the coarse pass's pooling."""
+    cells = np.random.default_rng(seed).uniform(20, 230, (size // 8, size // 8))
+    tex = np.kron(cells, np.ones((8, 8))).astype(img0.dtype)
+    s = tex.shape[0]
+    img0[y0 : y0 + s, x0 : x0 + s] = tex
+    img1[y0 : y0 + s, x0 - disparity : x0 - disparity + s] = tex
+
+
+def _render_device(rig, waves, grids, tex_scale, K, Rwc, t, iters: int = 30):
+    """render() of make_scene as one float32 JAX program on the default
+    device: same rays, same fixed-point iteration, same texture lookups.
+    Returns (img, points in this camera's frame) as numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    H, W = rig.height, rig.width
+    f32 = lambda a: jnp.asarray(np.asarray(a, np.float64), jnp.float32)
+    amps, kx, ky, ph = (f32(a) for a in (waves.amps, waves.kx, waves.ky, waves.phases))
+    cam_pos = -Rwc.T @ t
+
+    def eta(x, y):
+        arg = kx * x[..., None] + ky * y[..., None] + ph
+        return jnp.sum(amps * jnp.cos(arg), axis=-1)
+
+    def tex(x, y):
+        out = jnp.zeros_like(x)
+        norm = 0.0
+        for res, g, amp in grids:
+            g = f32(g)
+            fx = (x % 1.0) * res
+            fy = (y % 1.0) * res
+            ix = jnp.clip(fx.astype(jnp.int32), 0, res)
+            iy = jnp.clip(fy.astype(jnp.int32), 0, res)
+            tx = fx - ix
+            ty = fy - iy
+            tx = tx * tx * (3 - 2 * tx)
+            ty = ty * ty * (3 - 2 * ty)
+            v00, v01 = g[iy, ix], g[iy, ix + 1]
+            v10, v11 = g[iy + 1, ix], g[iy + 1, ix + 1]
+            out = out + amp * ((v00 * (1 - tx) + v01 * tx) * (1 - ty) + (v10 * (1 - tx) + v11 * tx) * ty)
+            norm += amp
+        return out / norm
+
+    @jax.jit
+    def render(Kd, Rd, td, cpos):
+        vv, uu = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32), jnp.arange(W, dtype=jnp.float32), indexing="ij")
+        rays = jnp.stack([(uu - Kd[0, 2]) / Kd[0, 0], (vv - Kd[1, 2]) / Kd[1, 1], jnp.ones_like(uu)], -1)
+        rays = rays @ Rd
+        rays = rays / jnp.linalg.norm(rays, axis=-1, keepdims=True)
+        vz = rays[..., 2]
+        t0 = -cpos[2] / vz
+        tr = jnp.where((vz >= -1e-6) | (t0 <= 0), jnp.nan, t0)
+
+        def body(_, tr):
+            p = cpos + tr[..., None] * rays
+            return tr + (eta(p[..., 0], p[..., 1]) - p[..., 2]) / vz
+
+        tr = jax.lax.fori_loop(0, iters, body, tr)
+        pw = cpos + tr[..., None] * rays
+        img = 30.0 + 200.0 * tex(pw[..., 0] * tex_scale, pw[..., 1] * tex_scale)
+        img = jnp.clip(jnp.where(jnp.isfinite(tr), img, 0.0), 0, 255)
+        return img, pw @ Rd.T + td
+
+    with jax.default_matmul_precision("highest"):
+        img, pc = render(f32(K), f32(Rwc), f32(t), f32(cam_pos))
+    return np.asarray(img), np.asarray(pc, np.float64)
+
+
 def make_scene(
     seed: int = 0,
     width: int = 256,
@@ -263,7 +337,14 @@ def make_scene(
     time: float = 0.0,
     rig: Optional[SyntheticRig] = None,
     texture_octaves: int = 7,
+    on_device: bool = False,
 ) -> SyntheticScene:
+    """Render a stereo pair of a random sea from `seed`.
+
+    on_device=True renders in float32 on JAX's default device (seconds at
+    megapixel sizes, where the float64 numpy render takes minutes); the
+    scene, rig and ground-truth contract are the same.
+    """
     rng = np.random.default_rng(seed)
     rig = rig or make_rig(width=width, height=height)
     waves = WaveField.random(rng, amplitude=wave_amplitude)
@@ -271,6 +352,15 @@ def make_scene(
     # pixels on screen at the working distance.
     tex = _value_noise(rng, n_octaves=texture_octaves, base=8)
     tex_scale = 1.0 / 60.0  # world units -> texture units
+
+    if on_device:
+        img0, pc0 = _render_device(rig, waves, tex.grids, tex_scale, rig.K0, rig.R0, rig.T0)
+        img1, _ = _render_device(rig, waves, tex.grids, tex_scale, rig.K1, rig.R1, rig.T1)
+        return SyntheticScene(
+            rig=rig, waves=waves, img0=img0.astype(np.float32),
+            img1=img1.astype(np.float32), depth0=pc0[..., 2], points0=pc0,
+            texture_scale=tex_scale,
+        )
 
     def render(K, Rwc, t):
         H, W = rig.height, rig.width

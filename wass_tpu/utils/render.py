@@ -1,6 +1,6 @@
 """Debug-image rendering (render.hpp + the matcher/stereo debug imagery).
 
-Host-side numpy/imageio equivalents of the reference's diagnostic outputs:
+Host-side numpy equivalents of the reference's diagnostic outputs:
 normalized disparity PNGs (render_disparity_float, render.hpp:55-87),
 side-by-side / stacked stereo composites with scanlines (:89-173),
 match visualizations (wass_match.cpp:70-95), and disparity-coverage
@@ -16,9 +16,23 @@ import numpy as np
 
 
 def _save(path, img):
+    """JPEG through the native library when it builds, PNG through the
+    numpy codec for grayscale .png, anything else through imageio."""
+    from wass_tpu import native
+
+    img8 = np.clip(img, 0, 255).astype(np.uint8)
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg") and native.available():
+        Path(path).write_bytes(native.jpeg_encode(img8))
+        return
+    if suffix == ".png" and img8.ndim == 2:
+        from wass_tpu.io.png import write_gray
+
+        write_gray(path, img8)
+        return
     import imageio.v3 as iio
 
-    iio.imwrite(Path(path), np.clip(img, 0, 255).astype(np.uint8))
+    iio.imwrite(Path(path), img8)
 
 
 def render_disparity(path, disp: np.ndarray) -> None:
