@@ -5,7 +5,6 @@
     python bench.py --size 2560x1920   # the 5 MP reference rig
     python bench.py --e2e              # PNG pair -> .xyzC through SequencePipeline.stereo
     python bench.py --accuracy         # match -> autocalibrate -> stereo, no GT extrinsics
-    python bench.py --kernel-choices   # whole-frame time per SGM route and per warp
 
 Synthetic wave-field scenes (wass_tpu.testing.make_scene, rendered on the
 device from a seed) stand in for camera frames; the reference design point
@@ -105,40 +104,6 @@ def bench_dense(W, H, D, n_frames, dev):
     }
 
 
-def bench_kernel_choices(W, H, D, n_frames, dev):
-    """Whole-frame time with each SGM route (the CUDA kernel, the plain
-    lax.scan reference) at full range and with c2f windowing."""
-    import dataclasses
-
-    import jax
-
-    import wass_tpu.stereo.dense as dense
-    import wass_tpu.stereo.sgm as sgm
-    from wass_tpu.stereo.dense import DenseStereoConfig
-
-    sc = _scene(W, H, 7)
-    base = DenseStereoConfig(num_disp=D, min_disp=1, plane_ransac_threshold=0.1,
-                             plane_max_distance=0.3)
-    routes = {"cuda": sgm.sgm_aggregate_cuda, "xla_scan": sgm.sgm_aggregate}
-    dispatch = sgm.aggregate
-    out = {}
-    try:
-        for route, fn in routes.items():
-            sgm.aggregate = dense._aggregate = fn
-            jax.clear_caches()
-            for mode, win in (("c2f", base.c2f_window), ("full", 0)):
-                frame, _ = _frame_fn(dataclasses.replace(base, c2f_window=win), sc)
-                int(frame().n_points)
-                med, lo, hi = _time_frames(frame, n_frames)
-                out[f"{route}_{mode}"] = {"median_s": med, "min_s": lo, "max_s": hi}
-                print(f"# {route} {mode}: {med * 1e3:.2f} ms/frame", file=sys.stderr)
-    finally:
-        sgm.aggregate = dense._aggregate = dispatch
-        jax.clear_caches()
-    return {"metric": f"kernel_choices_{W}x{H}_D{D}", "frame_times": out,
-            "frames": n_frames, "device": dev}
-
-
 def bench_e2e(W, H, D, n_frames, dev):
     """PNG decode -> rectify -> dense -> .xyzC export through
     SequencePipeline.stereo, the path a user runs."""
@@ -219,7 +184,6 @@ def main():
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--e2e", action="store_true")
     mode.add_argument("--accuracy", action="store_true")
-    mode.add_argument("--kernel-choices", action="store_true")
     ap.add_argument("--size", default=None, help="WxH (default 2048x1536; 1536x1152 for --accuracy)")
     ap.add_argument("--num-disp", type=int, default=640)
     ap.add_argument("--frames", type=int, default=8)
@@ -231,8 +195,7 @@ def main():
     enable_compile_cache()
     size = args.size or ("1536x1152" if args.accuracy else "2048x1536")
     W, H = (int(v) for v in size.lower().split("x"))
-    fn = (bench_e2e if args.e2e else bench_accuracy if args.accuracy
-          else bench_kernel_choices if args.kernel_choices else bench_dense)
+    fn = bench_e2e if args.e2e else bench_accuracy if args.accuracy else bench_dense
     print(json.dumps(fn(W, H, args.num_disp, args.frames, dev)))
 
 

@@ -376,11 +376,8 @@ def main():
                             K0=rig.K0, K1=rig.K1, R0=rig.R0, T0=rig.T0,
                             R1=rig.R1, T1=rig.T1)
 
-    # Production defaults — the same configuration as the quality.md
-    # matcher-gate row (503 matches / dR 40x inside gates on clean
-    # 1024x768).  A lowered hessian_threshold + denser grid (the pooled
-    # autocalibration settings) measures 6x fewer, weaker matches here
-    # and would misreport the detector's robustness.
+    # Production defaults: the detector's robustness is reported for the
+    # configuration users run.
     mcfg = MatchConfig()
     scfg = DenseStereoConfig(num_disp=192, min_disp=1,
                              plane_ransac_threshold=0.1, plane_max_distance=0.3)

@@ -330,7 +330,7 @@ def main() -> int:
             t0 = time.time()
             phase_precision()
             log(f"phase precision: {time.time() - t0:.1f} s")
-            rig, scenes = render_frames(4, W3, H3, seed0=100)
+            rig, scenes = render_frames(4, W3, H3, seed0=300)
             t0 = time.time()
             phase_stereo(work, rig, scenes)
             log(f"phase stereo: {time.time() - t0:.1f} s")

@@ -41,7 +41,7 @@ def register_all() -> None:
     matcher_cfg.register(float, "MATCHER_MAX_EPI_DISTANCE", 0.5, "Max matches epipolar distance")
     matcher_cfg.register(bool, "MATCHER_SKIP_GT", False, "Skip game-theoretic matcher and use the nearest match only.")
     matcher_cfg.register(float, "FEATURE_MIN_DISTANCE", 0.0, "Minimum distance allowed between two features (in px; 0 = auto: 12 below 1.5 MP, 8 above)")
-    matcher_cfg.register(float, "FEATURE_HESSIAN_THRESHOLD", 0.0, "Detector determinant-of-Hessian threshold (0 = auto: 1e-4 up to 1.5 MP, 1e-5 above)")
+    matcher_cfg.register(float, "FEATURE_HESSIAN_THRESHOLD", 1e-5, "Detector determinant-of-Hessian threshold")
     matcher_cfg.register(int, "FEATURE_N_OCTAVES", 4, "Scale-space octaves")
     matcher_cfg.register(int, "FEATURE_N_LAYERS", 4, "Scale-space layers per octave")
     matcher_cfg.register(int, "FEATURE_INIT_SAMPLES", 1, "Compatibility option (OpenSURF init samples)")

@@ -93,7 +93,7 @@ def _nms3d(resp: jnp.ndarray) -> jnp.ndarray:
 def detect_features(
     img: jnp.ndarray,
     max_features: int = 2000,
-    hessian_threshold: float = 1e-4,
+    hessian_threshold: float = 1e-5,
     n_scales: int = 8,
     grid_cell: int = 12,
     area_subdivision: int = 5,

@@ -46,12 +46,11 @@ class MatchConfig:
     max_rounds: int = 20
     max_epi_distance: float = 0.5  # px
     skip_gt: bool = False
-    # Determinant-of-Hessian detection threshold.  0 = AUTO: 1e-4 at
-    # <= 1.5 MP, 1e-5 above.  In float32 (CPU, GPU) the 1e-4 threshold
-    # leaves ~240 pose inliers at 2048x1536, under the >= 400 gate the
-    # reference defines at full resolution; 1e-5 restores the margin
-    # (PERF.md, "Matcher gate on float32 devices").
-    hessian_threshold: float = 0.0
+    # Determinant-of-Hessian detection threshold, for responses computed
+    # with exact float32 products.  1e-5 holds >= 1.7x the 400-match gate
+    # and the pose gates at 1, 3 and 5 MP (bench/_probe_hessian_threshold.py;
+    # PERF.md, "Matcher gate on float32 devices").
+    hessian_threshold: float = 1e-5
     # Grid-NMS cell size in px.  0 = AUTO: 12 at <= 1.5 MP, 8 above
     # (surface texture scales with resolution, so a fixed 12 px cell
     # caps feature density exactly where the budget grows).
@@ -163,19 +162,18 @@ def match_frame(
     area_mp = img0.shape[0] * img0.shape[1] / 1e6
     n_feat = cfg.num_features or (2000 if area_mp <= 1.5 else 4000)
     grid_cell = cfg.feature_grid_cell or (12 if area_mp <= 1.5 else 8)
-    hessian_threshold = cfg.hessian_threshold or (1e-4 if area_mp <= 1.5 else 1e-5)
 
     f0 = detect_features(
         jnp.asarray(img0, jnp.float32),
         max_features=n_feat,
-        hessian_threshold=hessian_threshold,
+        hessian_threshold=cfg.hessian_threshold,
         grid_cell=grid_cell,
         area_subdivision=cfg.area_subdivision,
     )
     f1 = detect_features(
         jnp.asarray(img1, jnp.float32),
         max_features=n_feat,
-        hessian_threshold=hessian_threshold,
+        hessian_threshold=cfg.hessian_threshold,
         grid_cell=grid_cell,
         area_subdivision=cfg.area_subdivision,
     )
